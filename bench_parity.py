@@ -6,7 +6,7 @@ reference schedule (15 envs x 200-step fits, minibatch 64 — src/main.c:33-43)
 single-device and sharded over an 8-device mesh for several seeds, and
 prints the per-epoch eval R for both, plus the first-solve epochs.
 
-On one real chip the mesh leg runs on 8 virtual CPU devices (the sharded
+Without 8 GPUs the mesh leg runs on 8 virtual CPU devices (the sharded
 program is identical; only the interconnect is fake):
 
     python bench_parity.py --platform cpu --devices 8 --seeds 3
@@ -18,6 +18,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+from ppoc_tpu.utils import device
 
 
 def run(platform, n_devices, seeds, epochs):
@@ -51,7 +53,7 @@ def run(platform, n_devices, seeds, epochs):
 
 
 def run_estimator_parity(platform, epochs):
-    """Curve parity under BOTH eval estimators (VERDICT r4 #7): per epoch,
+    """Curve parity under BOTH eval estimators: per epoch,
     evaluate the SAME policy on the SAME eval rollout (same key) with the
     default completed-episodes estimator and the strict reference one
     (src/ppo.cu:560-583).  Pendulum (horizon == eval window): the two R
@@ -105,7 +107,7 @@ def run_estimator_parity(platform, epochs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--epochs", type=int, default=14)
@@ -115,15 +117,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.estimator_parity:
         rows = run_estimator_parity(args.platform, args.epochs)
-        print(json.dumps({"metric": "estimator_parity", "curves": rows}),
-              flush=True)
+        print(json.dumps({"metric": "estimator_parity", "curves": rows,
+                          "device": device.record()}), flush=True)
         return 0
     curves = run(args.platform, args.devices, args.seeds, args.epochs)
     solves = {leg: [v["first_solve_epoch"] for v in by_seed.values()]
               for leg, by_seed in curves.items()}
     print(json.dumps({"metric": "curve_parity_reference_schedule",
-                      "first_solve_epochs": solves, "curves": curves}),
-          flush=True)
+                      "first_solve_epochs": solves, "curves": curves,
+                      "device": device.record()}), flush=True)
     return 0
 
 

@@ -1,11 +1,11 @@
 """Long-context memory with the attention model family.
 
-Reproduces the `recall_long` differentiator table (docs/RESULTS.md): the
+Reproduces the `recall_long` differentiator table: the
 cue is shown at t=0 and must be answered at t=511 — a one-hop attention
 lookup over the window, but a 511-step BPTT carry for a recurrent cell.
-On one v5e chip the attention trunk climbs to R ~ 0.94 within 20 epochs
-(~0.2 s/epoch) while the GRU and the memoryless MLP stay at the 0.5
-coin-flip baseline.
+The attention trunk climbs to R ~ 0.94 within 20 epochs while the GRU and
+the memoryless MLP stay at the 0.5 coin-flip baseline (time per epoch on
+the GPU: not measured).
 
 Usage: python examples/attn_long_context.py [n_epochs] [trunks...]
        python examples/attn_long_context.py 20 attn gru mlp
@@ -30,9 +30,8 @@ def main(argv):
                      eval_len=512, hidden=(32,), seed=0,
                      lr_policy=1e-3, lr_v=1e-3)
     variants = {
-        # kernel_backend="pallas" routes windows >= attn.FLASH_MIN_T through
-        # the flash kernel (ops/pallas_attn.py); at T=512 the XLA path is
-        # still the faster one (chip crossover table in docs/RESULTS.md)
+        # on a GPU, windows >= attn.FLASH_MIN_T run the flash kernel
+        # (ops/flash_attn.py; models/attn.attention_core picks)
         "attn": base.replace(attn_dim=32, attn_layers=2, attn_heads=4),
         "gru": base.replace(rnn_hidden=32),
         "mlp": base,

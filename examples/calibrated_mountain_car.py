@@ -8,7 +8,7 @@ per-dimension statistics with one jitted random-policy rollout and bakes
 them into the config (`obs_loc`/`obs_scale`), which every consumer —
 trainer, sweep lanes, serving — replays exactly.
 
-Chip-measured (docs/RESULTS.md): R = 90.2 at epoch 17, ~31 s wall
+Chip-measured: R = 90.2 at epoch 17, ~31 s wall
 including per-epoch evals.  CLI equivalent:
 
     python -m ppoc_tpu --env mountain_car --calibrate --n-envs 512 \\

@@ -2,7 +2,7 @@
 
 With one process this uses all local devices; across hosts, call
 ppoc_tpu.parallel.initialize_distributed() first and the same code runs on
-the global mesh (gradients pmean over ICI/DCN, env state stays local).
+the global mesh (gradients pmean over the interconnect, env state stays local).
 """
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

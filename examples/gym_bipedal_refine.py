@@ -5,7 +5,7 @@ obs/reward normalization sidecars), continues training with ent_coeff=0 so
 the policy can shed the exploration noise it no longer needs, and scores
 the MEAN policy (deterministic eval — the canonical benchmark protocol)
 every few epochs, keeping the best-scoring checkpoint.  This is the stage
-that took BipedalWalker-v3 from det R ~272 to 300+ (docs/RESULTS.md).
+that took BipedalWalker-v3 from det R ~272 to 300+.
 
 Usage: python examples/gym_bipedal_refine.py <in_ckpt> <out_ckpt>
            [n_epochs] [seed] [det_every] [lr] [stop_R] [env_id] [eval_len]

@@ -5,7 +5,7 @@ net for a gated mixture of expert MLPs; PPOConfig(ep_size=N) shards the
 experts over an 'ep' mesh axis (parallel/ep.py).  With one process this
 uses local devices; across hosts, call
 ppoc_tpu.parallel.initialize_distributed() first and the experts shard over
-the global mesh (mixture psum + router-gradient reduction over ICI/DCN —
+the global mesh (mixture psum + router-gradient reduction over the interconnect —
 see tests/test_distributed.py::test_two_process_expert_parallel).
 
 Run on CPU: PPOC_PLATFORM=cpu PPOC_CPU_DEVICES=8 python examples/moe_expert_parallel.py

@@ -1,4 +1,4 @@
-"""bf16 long-context bisect (VERDICT r4 #5): WHICH tensor's rounding kills
+"""bf16 long-context bisect: WHICH tensor's rounding kills
 recall_long's cue gradient under the bf16 backend?
 
 The round-3/4 record: bf16 trains short-window memory identically but

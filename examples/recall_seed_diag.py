@@ -1,9 +1,9 @@
-"""Mechanistic diagnosis of the recall_long seed-1 init trap (VERDICT r4 #4).
+"""Mechanistic diagnosis of the recall_long seed-1 init trap.
 
 recall_long (cue at t=0, blank thereafter, reward at t=511 iff the action
 sign matches the cue) solves on 7/8 seeds with the standard attention
 recipe; seed 1 plateaus at R ~ 0.59 and is immune to entropy bonuses, 3x
-lr and 4x batch (docs/RESULTS.md round-4 record).  This script trains a
+lr and 4x batch.  This script trains a
 seed with the exact recipe and instruments the trunk every few epochs:
 
   * cue attention  — softmax weight the FINAL query (t = T-1) places on

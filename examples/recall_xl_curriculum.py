@@ -2,7 +2,7 @@
 
 Direct training at T >= 1024 stalls at R ~ 0.72: the cue's attention
 weight starts at 1/T of the softmax mass and the retrieval gradient's SNR
-falls with the window (docs/RESULTS.md round-3 record).  The fix is a
+falls with the window.  The fix is a
 curriculum through the product surface, no new machinery:
 
   phase 1   train `recall_long` (T=512, where the recipe solves — 7/8
@@ -10,20 +10,19 @@ curriculum through the product surface, no new machinery:
   doubling  ``Trainer.from_checkpoint(ckpt, env=next, rollout_len=2T)``
             GROWS the positional table on load (zero rows + zero Adam
             moments for the new positions — utils/checkpoint
-            .adapt_to_template) and fine-tunes.  At T >= 1024 every
-            parallel pass routes through the flash kernel.
+            .adapt_to_template) and fine-tunes.  On a GPU every parallel
+            pass at T >= models/attn.FLASH_MIN_T runs the flash kernel.
 
 The retrieval circuit ("attend the position-0 cue when the observation is
-blank") transfers across every doubling: chip-measured, each fine-tune
-phase reaches R ~ 0.95-0.97 in 2-4 EPOCHS — T=1024 in 20 s, T=2048 in
-29 s, T=4096 in 74 s, T=8192 in 279 s, T=16384 (a 16,383-step retrieval
-distance) in 2156 s.  The top rungs need the program-size relief valves
-(the stage config below sets them): fits_per_program=1 at T=8192,
-fit_dispatch="phased" + rollout_chunk=4096 at T=16384 — each fused
-program past its measured ceiling crashes the transport worker on cold
-compile (docs/RESULTS.md round 5).  Right-sizing matters: pre-sizing the
-table to 4097 makes every phase-1 rollout pay the full KV length
-(125 s -> 1271 s measured).  Phase 1 ships with
+blank") transfers across every doubling: each fine-tune phase reaches
+R ~ 0.95-0.97 in 2-4 EPOCHS up to T=16384 (a 16,383-step retrieval
+distance); the committed recall_curriculum_*_s0.bin files are its stage
+checkpoints.  Wall-clock per stage on the GPU: not measured.  The top
+rungs set the compile-size options (the stage config below):
+fits_per_program=1 at T=8192, fit_dispatch="phased" + rollout_chunk=4096
+at T=16384 — smaller compiled programs for the longest windows.
+Right-sizing matters: pre-sizing the table to 4097 makes every phase-1
+rollout pay the full KV length.  Phase 1 ships with
 PPOConfig(transplant_patience=10): a trapped draw (seed 1's hard
 sign-commitment lock) is rescued by the critic->policy encoder
 transplant — 8/8 seeds solve with it.
@@ -52,7 +51,7 @@ def main(argv):
                 eval_envs=64, hidden=(32,), seed=seed,
                 lr_policy=1e-3, lr_v=1e-3,
                 # the plateau stabilizer: rescues the trapped draws
-                # (8/8 seeds solve phase 1 with it — docs/RESULTS.md r5)
+                # (8/8 seeds solve phase 1 with it)
                 transplant_patience=10,
                 attn_dim=32, attn_layers=2, attn_heads=4)
 
@@ -83,14 +82,11 @@ def main(argv):
             continue
         t0 = time.time()
         # sequence minibatches need mb >= window (one sequence per
-        # minibatch at the top rungs); at T=8192 the FUSED 2-fit epoch
-        # program's cold compile+first-run RPC crashes the transport
-        # worker (docs/RESULTS.md round 5) — chunk it to one fit per
-        # compiled program (bit-identical training)
+        # minibatch at the top rungs); at T=8192 the epoch compiles one
+        # fit per program (bit-identical training)
         if T >= 16384:
-            # past ~10k decode steps even the BARE rollout scan's cold
-            # compile crashes the worker: phased fit stages + segmented
-            # decode (one compiled 4096-step segment reused per window)
+            # phased fit stages + segmented decode (one compiled
+            # 4096-step segment reused per window)
             relief = dict(fit_dispatch="phased", rollout_chunk=4096,
                           fits_per_program=0)
         else:

@@ -1,14 +1,15 @@
-"""ppoc_tpu: a TPU-native PPO training framework.
+"""ppoc_tpu: a PPO training framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the C/CUDA
 reference cube1324/ppo.c (see SURVEY.md).  Compute path: pure-JAX vectorized
-environments + Pallas MLP kernels + one jitted fit step; scaling path:
+environments + XLA-compiled networks (a Pallas flash-attention kernel on
+the GPU for long attention windows) + one jitted fit step; scaling path:
 shard_map over a data-parallel mesh with psum collectives.
 """
-from ppoc_tpu.config import PPOConfig, reference_preset, tpu_preset
+from ppoc_tpu.config import PPOConfig, reference_preset, throughput_preset
 
 __version__ = "0.1.0"
-__all__ = ["PPOConfig", "reference_preset", "tpu_preset", "Trainer", "envs",
+__all__ = ["PPOConfig", "reference_preset", "throughput_preset", "Trainer", "envs",
            "serve", "sweep"]
 
 

@@ -1,6 +1,6 @@
 """PPO: rollout collection, GAE, and the clipped-surrogate update.
 
-TPU-native redesign of the reference algorithm layer (``src/ppo.cu``,
+Redesign of the reference algorithm layer (``src/ppo.cu``,
 ``include/ppo.h:30-47``).  The reference splits each "fit" across the host
 (3000 single-env steps through an embedded CPython bridge,
 ``collect_trajectories`` src/ppo.cu:54-79) and the GPU (value/policy
@@ -28,7 +28,7 @@ Semantics preserved from the reference (see SURVEY.md §7):
 Data parallelism: every function takes an optional ``axis_name``; when run
 under ``shard_map`` over a mesh axis, cross-device reduction happens in
 exactly two places — the whole-buffer advantage normalization and the
-per-minibatch gradient ``pmean`` — both riding ICI.  Env state and rollout
+per-minibatch gradient ``pmean``.  Env state and rollout
 data stay local to the device that generated them.
 """
 from __future__ import annotations
@@ -114,7 +114,7 @@ def _ent_coeff(cfg: PPOConfig, opt_state, n_mb: int):
     """Effective entropy-bonus coefficient: constant (reference) or linearly
     annealed to zero (cfg.ent_anneal) — the config-level form of the
     exploration-then-refinement staging the BipedalWalker recipe runs as
-    two separate CLI invocations (docs/RESULTS.md)."""
+    two separate CLI invocations."""
     if not cfg.ent_anneal:
         return cfg.ent_coeff
     return cfg.ent_coeff * _anneal_factor(cfg, opt_state, n_mb,
@@ -305,8 +305,6 @@ def rollout(
     axis_name: Optional[str] = None,
     env_carry=None,
     force_truncate: bool = True,
-    v_params=None,
-    return_values: bool = False,
     deterministic: bool = False,
 ) -> Tuple[Transition, Any]:
     """Collect [length, n_envs] transitions; returns (traj, final env carry).
@@ -317,11 +315,6 @@ def rollout(
     freshly reset at entry (the reference's behavior, src/ppo.cu:55);
     passing the previous rollout's carry continues the same episodes
     (cfg.reset_per_fit=False).
-
-    With ``return_values=True`` a third element is returned: ``(values,
-    next_values)`` [T, E] planes computed in-kernel by the whole-rollout
-    kernel when ``v_params`` is given and the shape fits (else ``None``),
-    letting compute_advantages skip its two whole-buffer forwards.
     """
     from ppoc_tpu.models import attn as _attn, gru as _gru
 
@@ -336,53 +329,10 @@ def rollout(
                 "(zero hidden state / empty KV cache); reset_per_fit=False "
                 "is not supported with rnn_hidden/attn_dim > 0"
             )
-        traj, final_carry = recurrent.rollout_rnn(
+        return recurrent.rollout_rnn(
             cfg, env, policy_params, key, n_envs, length, axis_name,
             force_truncate=force_truncate, deterministic=deterministic,
         )
-        return (traj, final_carry, None) if return_values \
-            else (traj, final_carry)
-
-    # the whole-rollout kernel also serves the bf16 backend (its in-kernel
-    # f32 matmuls are tiny; the bf16 win is in the large-batch update
-    # phases, which stay on XLA); it always samples stochastically, so
-    # deterministic (mean-policy) rollouts take the generic scan path
-    from ppoc_tpu.models import moe as _moe
-
-    if (backend in ("pallas", "bf16") and axis_name is None
-            and not deterministic and not _moe.is_moe(policy_params["mlp"])):
-        from ppoc_tpu.ops import pallas_rollout as _pr
-    else:
-        _pr = None
-
-    if (_pr is not None and env.spec.name in _pr.SUPPORTED
-            and _pr.fits_vmem(env.spec.name, length, n_envs)):
-        # whole-rollout kernel (ops/pallas_rollout.py): the T-step actor
-        # loop as ONE program — a compiled scan iteration costs ~10us of
-        # loop overhead alone, so the 200-step scan pays ~2ms before any
-        # work; the kernel does the lot in <1ms (docs/RESULTS.md)
-        want_v = (v_params is not None and backend == "pallas"
-                  and _pr.fits_vmem(env.spec.name, length, n_envs,
-                                    with_v=True))
-        if want_v:
-            traj, final_carry, vpair = _pr.rollout_fused(
-                env.spec.name, policy_params, key, n_envs, length,
-                cfg.activation, env_carry, gamma=env.spec.gamma,
-                v_params=v_params,
-            )
-        else:
-            traj, final_carry = _pr.rollout_fused(
-                env.spec.name, policy_params, key, n_envs, length,
-                cfg.activation, env_carry, gamma=env.spec.gamma,
-            )
-            vpair = None
-        if force_truncate:
-            last_trunc = jnp.logical_or(
-                traj.truncated[-1], jnp.logical_not(traj.terminated[-1])
-            )
-            traj = traj._replace(truncated=traj.truncated.at[-1].set(last_trunc))
-        return (traj, final_carry, vpair) if return_values \
-            else (traj, final_carry)
 
     k_reset, k_scan = jax.random.split(key)
     if env_carry is None:
@@ -421,7 +371,7 @@ def rollout(
             traj.truncated[-1], jnp.logical_not(traj.terminated[-1])
         )
         traj = traj._replace(truncated=traj.truncated.at[-1].set(last_trunc))
-    return (traj, final_carry, None) if return_values else (traj, final_carry)
+    return traj, final_carry
 
 
 # --------------------------------------------------------------------------
@@ -440,9 +390,10 @@ def compute_advantages(
     """GAE + whole-buffer normalization (compute_gae_cuda, src/ppo.cu:261-323).
 
     Returns (normalized advantages, value targets), both [T, E].
-    ``values_pair`` supplies precomputed (V(s), V(s')) planes — the rollout
-    kernel emits them in-kernel (ppo.rollout with v_params), replacing the
-    two whole-buffer forwards below (reference: src/ppo.cu:267-274).
+    ``values_pair`` supplies precomputed (V(s), V(s')) planes (sequence
+    trunks' history-aware pass, or the rollout-time values PPO2 value
+    clipping keeps), replacing the two whole-buffer forwards below
+    (reference: src/ppo.cu:267-274).
     """
     if values_pair is not None:
         values, next_values = values_pair
@@ -450,28 +401,6 @@ def compute_advantages(
         values = mlp.apply(v_params, traj.obs, cfg.activation, backend)[..., 0]
         next_values = mlp.apply(
             v_params, traj.next_obs, cfg.activation, backend)[..., 0]
-    # the fused GAE kernel operates on reward/value PLANES, so it is
-    # trunk-agnostic: MoE-with-bf16 runs ("moe:<k>:bf16") keep it; pure-jnp
-    # bases (incl. "moe:<k>") keep the XLA scan by design, and sharded runs
-    # need the scan so the Welford triple can psum across shards
-    _fused_gae = (backend in ("pallas", "bf16")
-                  or (backend.startswith("moe:") and backend.endswith(":bf16")))
-    if _fused_gae and axis_name is None:
-        from ppoc_tpu.ops import pallas_gae
-    else:
-        pallas_gae = None
-
-    if (pallas_gae is not None
-            and pallas_gae.fits_vmem(traj.reward.shape[0], traj.reward.shape[1])):
-        # one kernel: deltas + backward recurrence + Welford + normalize,
-        # all VMEM-resident (ops/pallas_gae.py); the dp path keeps the XLA
-        # scan so the Welford triple can psum across shards, and
-        # over-VMEM-budget shapes fall back too
-        return pallas_gae.gae_norm_fused(
-            traj.reward, values, next_values, traj.terminated,
-            traj.truncated, env.spec.gamma, cfg.lam,
-            normalize=cfg.norm_adv_global,
-        )
     adv, target = gae_ops.gae(
         traj.reward, values, next_values, traj.terminated, traj.truncated,
         env.spec.gamma, cfg.lam,
@@ -490,144 +419,14 @@ def compute_advantages(
 # update phases
 # --------------------------------------------------------------------------
 
-def _replicate_equal(tree, axis_name: str):
-    """Re-type a device-varying tree whose values are PROVABLY identical on
-    every shard as replicated.  pmax of identical values is bit-exact for
-    every dtype and mesh size (a pmean would divide — 1-ulp noise on
-    non-power-of-2 meshes — and reject the int32 Adam timestep)."""
-    return jax.tree.map(lambda x: jax.lax.pmax(x, axis_name), tree)
-
-
-def _stab_value_ok(cfg: PPOConfig) -> bool:
-    """Stabilizer gate shared by the fused VALUE phase and fused_dp_engages:
-    the fused kernel implements none of the default-off stabilizers."""
-    return (cfg.max_grad_norm == 0.0 and not cfg.lr_anneal
-            and cfg.clip_value == 0.0)
-
-
-def _stab_policy_ok(cfg: PPOConfig) -> bool:
-    """Stabilizer gate shared by the fused POLICY phase and
-    fused_dp_engages (swaps clip_value for target_kl/ent_anneal)."""
-    return (cfg.max_grad_norm == 0.0 and not cfg.lr_anneal
-            and cfg.target_kl == 0.0 and not cfg.ent_anneal)
-
-
-def fused_dp_engages(cfg: PPOConfig, backend: str) -> bool:
-    """Config-only gate: will the replicated fused phases engage under
-    data parallelism?  Composed from the SAME stabilizer predicates the
-    phases use (_stab_value_ok and _stab_policy_ok — both must pass, so
-    this is conservative: it never claims engagement a phase would refuse
-    on stabilizer grounds).  Two runtime conditions are unknowable from
-    the config alone and are therefore NOT checked here — callers relying
-    on this for exactness must know that the phases additionally require
-    (a) n_mb == cfg.num_minibatches (no tail-phase override) and (b) the
-    sharded buffer gathering back to exactly cfg.steps_per_fit rows.
-    Informational/testing surface; the Trainer's check_vma decision is
-    simply ``backend != "pallas"`` because the pallas backend reaches
-    kernels on every dp path (scan-phase mlp.apply included), and no
-    Pallas program traces under the varying-axes checker.  Correctness of
-    the replicated path is pinned by bit-equality tests
-    (tests/test_pallas_update.py::test_fused_dp_*)."""
-    if backend != "pallas" or cfg.zero1:
-        return False
-    if cfg.n_experts > 1 or cfg.rnn_hidden > 0 or cfg.attn_dim > 0:
-        return False
-    if not (_stab_value_ok(cfg) and _stab_policy_ok(cfg)):
-        return False
-    from ppoc_tpu.ops import pallas_update as _pu
-
-    return cfg.minibatch_size <= _pu._MAX_TILE
-
-
-def _fused_dp_ready(cfg: PPOConfig, trunk, axis_name, backend: str,
-                    key_common, n_mb: int) -> bool:
-    """Gate for the REPLICATED fused update under data parallelism.
-
-    At the latency-bound minibatch sizes where the fused whole-phase
-    kernels win (mb <= ~2k), sharding the update is the wrong parallelism:
-    the scan path pays (n_epochs_value + n_epochs_policy) * n_mb per-
-    minibatch gradient pmeans (644 collective latencies per fit on the
-    reference schedule) to split GEMMs that are overhead-bound anyway.
-    Instead the rollout stays sharded (that is where the work scales) and
-    the update REPLICATES: one all_gather of the small buffer per phase,
-    every shard runs the identical fused kernel under a shard-COMMON
-    permutation key, and the identical results re-type as replicated —
-    zero per-minibatch collectives.  Exactness: bit-equal to the
-    single-device fused phase on the gathered buffer
-    (tests/test_pallas_update.py::test_fused_dp_*).
-    """
-    from ppoc_tpu.models import moe as _moe
-
-    if not (backend == "pallas" and axis_name is not None
-            and isinstance(axis_name, str) and key_common is not None):
-        return False
-    if _moe.is_moe(trunk) or cfg.zero1:
-        return False
-    from ppoc_tpu.ops import pallas_update as _pu
-
-    return (cfg.minibatch_size <= _pu._MAX_TILE
-            and n_mb == cfg.num_minibatches)
-
-
-def _gather_rows(buf, axis_name: str):
-    """all_gather the per-shard row buffers back into the global buffer
-    (tiled over the row axis) — the one collective of a replicated phase."""
-    return jax.tree.map(
-        lambda a: jax.lax.all_gather(a, axis_name, tiled=True), buf)
-
-
 def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer, key,
                 axis_name: Optional[str], backend: str, n_mb: int,
-                mb_size: int, key_common=None):
-    """n_epochs_value shuffled passes fitting V (src/ppo.cu:491-510).
-
-    With the pallas backend and a latency-bound minibatch size, the ENTIRE
-    phase (all epochs x minibatches of forward + backward + Adam) runs as
-    one fused kernel with weights and moments resident in VMEM
-    (ops/pallas_update.py); same permutation stream and update sequence.
-    Measured on a v5e chip: 1.8x faster at mb<=~2k (the solve config),
-    slower at mb>=8k where XLA's pipelined big matmuls win — hence the
-    size gate (docs/RESULTS.md perf X-ray).  Under data parallelism the
-    phase REPLICATES instead of sharding (see _fused_dp_ready); sharded
-    runs outside the fused regime keep the scan (gradient pmean must cross
-    shards before Adam).
-    """
+                mb_size: int):
+    """n_epochs_value shuffled passes fitting V (src/ppo.cu:491-510): nested
+    scans over (epoch, minibatch) of forward + backward + Adam; under data
+    parallelism the minibatch gradient pmeans across shards before Adam."""
     from ppoc_tpu.models import moe as _moe
 
-    _stab_ok = _stab_value_ok(cfg)
-    if (backend == "pallas" and axis_name is None
-            and not _moe.is_moe(ts.v_params) and _stab_ok):
-        from ppoc_tpu.ops import pallas_update as _pu
-
-        if (mb_size <= _pu._MAX_TILE
-                and mb_size == cfg.minibatch_size
-                and n_mb == cfg.num_minibatches):
-            v2, opt2, loss = _pu.value_phase_fused(
-                cfg, ts.v_params, ts.opt_v, buf, key
-            )
-            return ts._replace(v_params=v2, opt_v=opt2), loss
-    # Large-minibatch (throughput) regime, the round-5 resolution of
-    # VERDICT r4 #1: the bf16 fused big-tile kernels exist
-    # (ops/pallas_update.py bf16=True, chip-measured 48 ms on the reacher
-    # value phase) but the BLOCK-SHUFFLED XLA scan beats them (43.2 ms;
-    # policy 17.6 vs 34.1) once cfg.shuffle_block removes the row-gather
-    # bandwidth wall — so no fused gate engages here and the scan below is
-    # the big-mb path.  Full analysis: docs/RESULTS.md round 5.
-    if (_stab_ok and _fused_dp_ready(cfg, ts.v_params, axis_name, backend,
-                                     key_common, n_mb)
-            and buf.obs.shape[0] * jax.lax.axis_size(axis_name)
-            == cfg.steps_per_fit):
-        from ppoc_tpu.ops import pallas_update as _pu
-
-        # type params/key varying so every kernel operand matches the
-        # gathered rows' vma (no-op under check_vma=False)
-        v_in, opt_in, k_in = _pvary(
-            (ts.v_params, ts.opt_v, key_common), axis_name)
-        v2, opt2, loss = _pu.value_phase_fused(
-            cfg, v_in, opt_in, _gather_rows(buf, axis_name), k_in,
-        )
-        v2, opt2, loss = _replicate_equal((v2, opt2, loss), axis_name)
-        return ts._replace(v_params=v2, opt_v=opt2), loss
     n_rows = buf.obs.shape[0]
     aux_coeff, moe_topk = _moe.aux_setup(cfg, ts.v_params, backend)
 
@@ -669,59 +468,12 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer, key,
 
 def policy_phase(cfg: PPOConfig, env: Env, ts: TrainState, buf: buffer.RowBuffer,
                  key, axis_name: Optional[str],
-                 backend: str, n_mb: int, mb_size: int, key_common=None):
+                 backend: str, n_mb: int, mb_size: int):
     """n_epochs_policy shuffled passes on the clipped surrogate
-    (src/ppo.cu:512-533).
-
-    With the pallas backend (small-minibatch gate as in value_phase), the
-    whole phase runs as one fused kernel — Gaussian and categorical
-    policies both (closed-form surrogate + entropy gradients,
-    ops/pallas_update.py); under dp it replicates (_fused_dp_ready).
-    """
+    (src/ppo.cu:512-533)."""
     n_rows = buf.obs.shape[0]
     discrete = env.spec.discrete
     from ppoc_tpu.models import moe as _moe
-
-    _stab_ok = _stab_policy_ok(cfg)
-
-    def _run_fused(pol_in, opt_p_in, opt_ls_in, buf_in, key_in):
-        if discrete:
-            pol2, opt_p2, loss, ent = _pu.policy_phase_fused_categorical(
-                cfg, pol_in, opt_p_in, buf_in, key_in
-            )
-            return (pol2, opt_p2, opt_ls_in), (loss, ent)
-        pol2, opt_p2, opt_ls2, loss, ent = _pu.policy_phase_fused(
-            cfg, pol_in, opt_p_in, opt_ls_in, buf_in, key_in,
-        )
-        return (pol2, opt_p2, opt_ls2), (loss, ent)
-
-    if (backend == "pallas" and axis_name is None
-            and not _moe.is_moe(ts.policy_params["mlp"]) and _stab_ok):
-        from ppoc_tpu.ops import pallas_update as _pu
-
-        if (mb_size <= _pu._MAX_TILE
-                and mb_size == cfg.minibatch_size
-                and n_mb == cfg.num_minibatches):
-            (pol2, opt_p2, opt_ls2), (loss, ent) = _run_fused(
-                ts.policy_params, ts.opt_policy, ts.opt_log_std, buf, key)
-            return ts._replace(policy_params=pol2, opt_policy=opt_p2,
-                               opt_log_std=opt_ls2), loss, ent
-    # Large-minibatch regime: the bf16 fused kernels lose to the
-    # block-shuffled scan here too (see value_phase's note) — no gate.
-    if (_stab_ok and _fused_dp_ready(cfg, ts.policy_params["mlp"], axis_name,
-                                     backend, key_common, n_mb)
-            and n_rows * jax.lax.axis_size(axis_name) == cfg.steps_per_fit):
-        from ppoc_tpu.ops import pallas_update as _pu
-
-        pol_in, opt_p_in, opt_ls_in, k_in = _pvary(
-            (ts.policy_params, ts.opt_policy, ts.opt_log_std, key_common),
-            axis_name)
-        out = _run_fused(pol_in, opt_p_in, opt_ls_in,
-                         _gather_rows(buf, axis_name), k_in)
-        ((pol2, opt_p2, opt_ls2), (loss, ent)) = _replicate_equal(
-            out, axis_name)
-        return ts._replace(policy_params=pol2, opt_policy=opt_p2,
-                           opt_log_std=opt_ls2), loss, ent
 
     aux_coeff, moe_topk = _moe.aux_setup(cfg, ts.policy_params["mlp"], backend)
 
@@ -793,8 +545,6 @@ def update_step(
     axis_name: Optional[str] = None,
     mb_size: Optional[int] = None,
     backend: str = "jnp",
-    values_pair=None,
-    key_common=None,
 ) -> Tuple[TrainState, FitMetrics]:
     """Learner half of a fit: GAE + advantage normalization + value/policy
     epochs on an already-collected trajectory (the work of
@@ -802,16 +552,11 @@ def update_step(
 
     Used by :func:`fit_step` with on-device rollouts and by the Gymnasium
     host bridge (ppoc_tpu.envs.gym_bridge) with host-collected ones —
-    ``env`` only contributes its spec (gamma, discrete).  ``key_common``
-    (dp runs) is the shard-INVARIANT update key the replicated fused
-    phases permute with (see _fused_dp_ready).
+    ``env`` only contributes its spec (gamma, discrete).
     """
     mb_size = cfg.minibatch_size if mb_size is None else mb_size
     n_mb = cfg.num_minibatches  # identical globally and per shard
     k_val, k_pol = jax.random.split(key)
-    k_val_c = k_pol_c = None
-    if key_common is not None:
-        k_val_c, k_pol_c = jax.random.split(key_common)
 
     from ppoc_tpu.models import attn as _attn, gru as _gru
 
@@ -821,18 +566,17 @@ def update_step(
         # row shuffling would destroy the history they need
         from ppoc_tpu.algo import recurrent
 
-        seq_backend = backend if backend in ("pallas", "bf16") else "jnp"
         vpair = recurrent.compute_values_rnn(cfg, ts.v_params, traj,
-                                             backend=seq_backend)
+                                             backend=backend)
         adv, target = compute_advantages(
             cfg, env, ts.v_params, traj, axis_name, "jnp", vpair)
         ts, v_loss = recurrent.value_phase_rnn(
             cfg, ts, traj, target, k_val, axis_name, mb_size,
             v_old=vpair[0] if cfg.clip_value > 0.0 else None,
-            backend=seq_backend)
+            backend=backend)
         ts, p_loss, ent = recurrent.policy_phase_rnn(
             cfg, env, ts, traj, adv, k_pol, axis_name, mb_size,
-            backend=seq_backend,
+            backend=backend,
             target=target if cfg.aux_value_coeff > 0.0 else None)
         mean_rew = _pmean(jnp.mean(traj.reward), axis_name)
         return ts, FitMetrics(
@@ -840,7 +584,8 @@ def update_step(
             _pmean(ent, axis_name), mean_rew,
         )
 
-    if cfg.clip_value > 0.0 and values_pair is None:
+    values_pair = None
+    if cfg.clip_value > 0.0:
         # PPO2 value clipping needs the rollout-time V(s) rows; materialize
         # the planes here so compute_advantages reuses them for free
         values_pair = (
@@ -855,13 +600,9 @@ def update_step(
         v_old=values_pair[0] if cfg.clip_value > 0.0 else None)
 
     ts, v_loss = value_phase(
-        cfg, ts, buf, k_val, axis_name, backend, n_mb, mb_size,
-        key_common=k_val_c,
-    )
+        cfg, ts, buf, k_val, axis_name, backend, n_mb, mb_size)
     ts, p_loss, ent = policy_phase(
-        cfg, env, ts, buf, k_pol, axis_name, backend, n_mb, mb_size,
-        key_common=k_pol_c,
-    )
+        cfg, env, ts, buf, k_pol, axis_name, backend, n_mb, mb_size)
     mean_rew = _pmean(jnp.mean(traj.reward), axis_name)
     # pmean the scalar diagnostics so they are replicated across shards
     return ts, FitMetrics(
@@ -889,19 +630,14 @@ def fit_step(
     thread persistent env state across fits (cfg.reset_per_fit=False).
     """
     n_envs = cfg.n_envs if n_envs is None else n_envs
-    # shard-invariant update key for the replicated fused phases (derived
-    # BEFORE the per-device fold; mirrors k_upd's split position so the
-    # single-device stream is unchanged)
-    k_upd_common = jax.random.split(key)[1] if axis_name is not None else None
     key = _device_key(key, axis_name)
     k_roll, k_upd = jax.random.split(key)
-    traj, env_carry, vpair = rollout(
+    traj, env_carry = rollout(
         cfg, env, ts.policy_params, k_roll, n_envs, cfg.rollout_len, backend,
-        axis_name, env_carry, v_params=ts.v_params, return_values=True,
+        axis_name, env_carry,
     )
     ts, metrics = update_step(
-        cfg, env, ts, traj, k_upd, axis_name, mb_size, backend,
-        values_pair=vpair, key_common=k_upd_common)
+        cfg, env, ts, traj, k_upd, axis_name, mb_size, backend)
     return (ts, env_carry, metrics) if return_env_carry else (ts, metrics)
 
 
@@ -1006,8 +742,9 @@ def train_until(
     run costs a single host dispatch.
 
     The reference's equivalent loop lives on the host (src/main.c:50-56,
-    one train + eval round trip per epoch); on TPU those round trips
-    dominate sub-second solves, so the loop compiles onto the device.
+    one train + eval round trip per epoch); on an accelerator those round
+    trips dominate sub-second solves, so the loop compiles onto the
+    device.
     Returns (state, epochs_run, final_R).
     """
     def cond(carry):
@@ -1159,32 +896,6 @@ def evaluate(
     n_envs = cfg.eval_envs if n_envs is None else n_envs
     key = _device_key(key, axis_name)
     reference_est = getattr(cfg, "eval_estimator", "completed") == "reference"
-    from ppoc_tpu.models import attn as _attn, gru as _gru, moe as _moe
-
-    if (backend in ("pallas", "bf16") and axis_name is None
-            and not deterministic and not reference_est
-            and not _moe.is_moe(policy_params["mlp"])
-            and not _gru.is_rnn(policy_params["mlp"])
-            and not _attn.is_attn(policy_params["mlp"])):
-        from ppoc_tpu.ops import pallas_rollout as _pr
-
-        if (env.spec.name in _pr.SUPPORTED
-                and _pr.fits_vmem(env.spec.name, cfg.eval_len, n_envs)):
-            # the rollout kernel accumulates completed-episode J/R/counts
-            # in-lane, so evaluation needs no post-processing scans
-            _, _, (sum_r, sum_j, n_eps) = _pr.rollout_fused(
-                env.spec.name, policy_params, key, n_envs, cfg.eval_len,
-                cfg.activation, None, gamma=env.spec.gamma,
-                return_metrics=True,
-            )
-            denom = jnp.maximum(n_eps, 1.0)
-            none = n_eps == 0.0
-            neg_inf = jnp.float32(-jnp.inf)
-            return EvalMetrics(
-                J=jnp.where(none, neg_inf, sum_j / denom),
-                R=jnp.where(none, neg_inf, sum_r / denom),
-                episodes=n_eps,
-            )
     traj, _ = rollout(
         cfg, env, policy_params, key, n_envs, cfg.eval_len, backend, axis_name,
         force_truncate=False, deterministic=deterministic,

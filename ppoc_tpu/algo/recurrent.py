@@ -12,7 +12,7 @@ normalization, tail-dropped shuffled minibatches, three separate Adams
 scanning the GRU over time with episode-boundary masking (models/gru.py),
 i.e. truncated BPTT over the rollout window.
 
-TPU shape: everything is `lax.scan` over time inside `lax.scan` over
+Program shape: everything is `lax.scan` over time inside `lax.scan` over
 minibatches — one jitted program per fit, like the feedforward path
 (algo/ppo.py).  Data parallelism composes unchanged: sequences shard over
 the dp axis with the per-minibatch gradient pmean and the Welford
@@ -49,14 +49,14 @@ def _seq_apply(trunk, xs, reset_after, activation, backend: str = "jnp",
     """Whole-window head outputs for either sequence family: the GRU/LSTM
     masked time scan or the attention causal-episode-masked parallel pass.
     Single dispatch point for the update phases, so both families share the
-    sequence-minibatch PPO machinery below.  ``backend="pallas"`` selects
-    the flash-attention kernel for attention trunks (GRU ignores it);
-    ``sp_axis`` (attention only) runs the window time-sharded over that
-    mesh axis via ring attention (models/attn.apply_seq_sp)."""
+    sequence-minibatch PPO machinery below.  ``backend`` ("jnp"/"bf16")
+    reaches attention trunks (GRU ignores it); ``sp_axis`` (attention only)
+    runs the window time-sharded over that mesh axis via ring attention
+    (models/attn.apply_seq_sp)."""
     if attn.is_attn(trunk):
         if sp_axis is not None:
             return attn.apply_seq_sp(trunk, xs, reset_after, activation,
-                                     sp_axis, backend=backend)
+                                     sp_axis)
         return attn.apply_seq(trunk, xs, reset_after, activation,
                               backend=backend)
     return gru.apply_seq(trunk, xs, reset_after, activation)
@@ -224,8 +224,7 @@ def compute_values_rnn(
 
 
 def compute_values_sp(cfg: PPOConfig, v_params, traj,
-                      sp_axis: str,
-                      backend: str = "jnp") -> Tuple[jax.Array, jax.Array]:
+                      sp_axis: str) -> Tuple[jax.Array, jax.Array]:
     """(V(s_t), V(s'_t)) [T_local, E] planes for a TIME-sharded window.
 
     The sequence-parallel form of :func:`compute_values_rnn`'s attention
@@ -236,10 +235,9 @@ def compute_values_sp(cfg: PPOConfig, v_params, traj,
     """
     done = jnp.logical_or(traj.terminated, traj.truncated)
     values, ks, vs, ep = attn.apply_seq_sp(
-        v_params, traj.obs, done, cfg.activation, sp_axis, with_cache=True,
-        backend=backend)
+        v_params, traj.obs, done, cfg.activation, sp_axis, with_cache=True)
     nv = attn.decode_next_sp(v_params, traj.next_obs, ks, vs, ep,
-                             cfg.activation, sp_axis, backend=backend)
+                             cfg.activation, sp_axis)
     return values[..., 0], nv[..., 0]
 
 

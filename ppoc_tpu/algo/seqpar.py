@@ -19,7 +19,7 @@ one jitted program per epoch — the same invariant as every other mode):
 2. **Reshard**: one tiled ``all_to_all`` over ``sp`` turns each device's
    [T, e] into [T/sp, e*sp] — sp rank i holds time block i of its dp
    group's whole env set.  This is the only moment the buffer crosses
-   devices, and it rides ICI once per fit.
+   devices, once per fit.
 3. **Values**: the parallel pass and the V(s') bootstrap decode run as ring
    attention with global positions/episode ids (models/attn.apply_seq_sp /
    decode_next_sp).
@@ -67,12 +67,10 @@ def fit_step_sp(
     sp_axis: str,
     n_envs_dp: int,
     mb_size: int,
-    backend: str = "jnp",
 ) -> Tuple[ppo.TrainState, ppo.FitMetrics]:
     """One fit on the (dp, sp) mesh; ``n_envs_dp``/``mb_size`` are per-DP-
     GROUP sizes (the whole sp ring of a group works the same sequences).
-    ``backend="pallas"`` routes ring blocks through the flash kernel at
-    T_local >= FLASH_MIN_T (models/attn._ring_core)."""
+    Every attention pass runs as XLA ring attention (float32)."""
     both = (dp_axis, sp_axis)
     sp_n = jax.lax.axis_size(sp_axis)
     n_envs_roll = n_envs_dp // sp_n
@@ -98,8 +96,7 @@ def fit_step_sp(
     # vma check (same hazard ppo._pvary guards in the dp rollout)
     traj = ppo._pvary(traj, both)
 
-    vpair = recurrent.compute_values_sp(cfg, ts.v_params, traj, sp_axis,
-                                        backend=backend)
+    vpair = recurrent.compute_values_sp(cfg, ts.v_params, traj, sp_axis)
     adv, target = sp_mod.gae_sp(
         traj.reward, vpair[0], vpair[1], traj.terminated, traj.truncated,
         env.spec.gamma, cfg.lam, axis_name=sp_axis,
@@ -111,11 +108,10 @@ def fit_step_sp(
     ts, v_loss = recurrent.value_phase_rnn(
         cfg, ts, traj, target, k_val, both, mb_size,
         v_old=vpair[0] if cfg.clip_value > 0.0 else None,
-        backend=backend, sp_axis=sp_axis,
+        sp_axis=sp_axis,
     )
     ts, p_loss, ent = recurrent.policy_phase_rnn(
-        cfg, env, ts, traj, adv, k_pol, both, mb_size, backend=backend,
-        sp_axis=sp_axis,
+        cfg, env, ts, traj, adv, k_pol, both, mb_size, sp_axis=sp_axis,
     )
     mean_rew = jax.lax.pmean(jnp.mean(traj.reward), both)
     return ts, ppo.FitMetrics(
@@ -133,13 +129,12 @@ def train_epoch_sp(
     sp_axis: str,
     n_envs_dp: int,
     mb_size: int,
-    backend: str = "jnp",
 ) -> Tuple[ppo.TrainState, ppo.FitMetrics]:
     """fits_per_epoch sequential sp fits as one scan (src/ppo.cu:479 loop;
     sequence trunks always reset per fit — config.validate enforces it)."""
     def one_fit(ts, key_f):
         return fit_step_sp(cfg, env, ts, key_f, dp_axis, sp_axis,
-                           n_envs_dp, mb_size, backend)
+                           n_envs_dp, mb_size)
 
     keys = jax.random.split(key, cfg.fits_per_epoch)
     ts, metrics = jax.lax.scan(one_fit, ts, keys)
@@ -158,7 +153,6 @@ def train_until_sp(
     n_envs_dp: int,
     mb_size: int,
     eval_envs_local: int,
-    backend: str = "jnp",
 ) -> Tuple[ppo.TrainState, jax.Array, jax.Array]:
     """Train-until-threshold as ONE device program (ppo.train_until on the
     (dp, sp) mesh); returns (state, epochs_run, final_R)."""
@@ -172,7 +166,7 @@ def train_until_sp(
         ts, key, n, _ = carry
         key, k_train, k_eval = jax.random.split(key, 3)
         ts, _ = train_epoch_sp(cfg, env, ts, k_train, dp_axis, sp_axis,
-                               n_envs_dp, mb_size, backend)
+                               n_envs_dp, mb_size)
         ev = ppo.evaluate(cfg, env, ts.policy_params, k_eval, "jnp",
                           eval_envs_local, both)
         return ts, key, n + 1, ev.R

@@ -24,7 +24,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ppoc_tpu import config as config_mod, envs
 from ppoc_tpu.algo import ppo
 from ppoc_tpu.config import PPOConfig
-from ppoc_tpu.ops import resolve_backend
 
 
 class EvalWindowWarning(UserWarning):
@@ -36,10 +35,10 @@ class EvalWindowWarning(UserWarning):
 
 
 def _shard_map(fn, mesh, in_specs, out_specs, check_vma: bool = True):
-    """check_vma=False only where Pallas kernels run inside the mesh
-    program (the pallas-dp mode, and sp with the flash ring): no Pallas
-    program traces under the varying-axes checker (in-kernel literals
-    carry no vma); every other mode keeps the type check."""
+    """check_vma=False only where the flash-attention kernel runs inside
+    the mesh program (dp attention trainers at flash windows on a GPU):
+    a Pallas program does not trace under the varying-axes checker; every
+    other mode keeps the type check."""
     try:
         return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
                              out_specs=out_specs, check_vma=check_vma)
@@ -118,12 +117,12 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.env = envs.make_for(cfg)
-        self.backend = resolve_backend(cfg.kernel_backend)
         self.key = jax.random.PRNGKey(cfg.seed)
         # config-consistency checks: the shared bank (config.validate) —
         # sweep and the CLI run the IDENTICAL definition, so the three
         # surfaces cannot drift; only mesh-dependent checks live below
         config_mod.validate(cfg)
+        self.backend = cfg.kernel_backend
         if cfg.eval_len < self.env.spec.horizon:
             import warnings
 
@@ -146,17 +145,9 @@ class Trainer:
         self._unshard_state = lambda s: s
         self._mp_ctx = None  # set by _finalize_mp in tp/pp/ep modes
 
-        if cfg.rnn_hidden > 0 or cfg.attn_dim > 0:
-            # sequence trunks run the generic XLA path for everything except
-            # attention's parallel passes: the pallas backend routes them
-            # through the flash kernel (ops/pallas_attn.py — score tiles in
-            # VMEM, the long-window path) and bf16 carries the attention
-            # operands in bf16 with f32 softmax/accumulation; the dense-MLP
-            # pallas/bf16 kernels don't apply
-            self.backend = (self.backend
-                            if (cfg.attn_dim > 0
-                                and self.backend in ("pallas", "bf16"))
-                            else "jnp")
+        if cfg.rnn_hidden > 0:
+            # GRU/LSTM trunks have no bf16 variant: the float32 XLA path
+            self.backend = "jnp"
         if cfg.sp_size > 1:
             self._init_sp(full_state, mesh)
             self._solve_fn = None
@@ -169,9 +160,7 @@ class Trainer:
             return
         if cfg.n_experts > 1:
             # single-device / pure-dp MoE: encode gating options into the
-            # backend string (mlp.apply dispatches on the params structure);
-            # the fused dense-MLP pallas kernels don't apply to MoE trunks,
-            # so "pallas" degrades to the XLA path
+            # backend string (mlp.apply dispatches on the params structure)
             from ppoc_tpu.models import mlp as mlp_mod
 
             base = "bf16" if self.backend == "bf16" else "jnp"
@@ -262,13 +251,14 @@ class Trainer:
                 self._pack_state = pack_state
                 self._unshard_state = unshard
                 full_state = pack_state(full_state)
-            # pallas-dp: ANY Pallas program under shard_map fails the
-            # varying-axes checker at trace (in-kernel literals carry no
-            # vma) — and the pallas backend reaches kernels on every dp
-            # path (the scan phases' mlp.apply forward, the fused update
-            # phases, eval's policy forward) — so the whole mode drops the
-            # checker; every other backend keeps it
-            self._dp_check_vma = self.backend != "pallas"
+            # the flash kernel (a Pallas program) does not trace under
+            # the varying-axes checker: drop it exactly where the update
+            # phases' attention windows run the kernel
+            from ppoc_tpu.models import attn as attn_mod
+
+            self._dp_check_vma = not (
+                cfg.attn_dim > 0
+                and attn_mod.uses_flash(cfg.rollout_len, self.backend))
             epoch_local = functools.partial(
                 ppo.train_epoch, cfg, self.env,
                 axis_name=cfg.mesh_axis,
@@ -303,9 +293,8 @@ class Trainer:
             if cfg.fits_per_program:
                 # chunked-epoch dispatch: compile a bounded N-fit program
                 # and Python-loop it over the SAME key stream the fused
-                # epoch would use (bit-identical training).  The fused
-                # T=8192 attention epoch's cold compile+first-run RPC is
-                # what crashes the transport worker (docs/RESULTS.md r5)
+                # epoch would use (bit-identical training) — a compile-size
+                # option for extreme windows
                 self._train_fits = jax.jit(functools.partial(
                     ppo.train_fits, cfg, self.env, backend=self.backend))
                 self._reset_carry = jax.jit(functools.partial(
@@ -614,21 +603,8 @@ class Trainer:
                 f"minibatch_size ({cfg.minibatch_size}) must be divisible "
                 f"by the dp size ({dp_size})"
             )
-        from ppoc_tpu.models import attn as attn_mod
-
-        # ring passes run their own path: "pallas" routes each ring block
-        # through the flash kernel once the LOCAL time shard reaches the
-        # flash regime (models/attn._ring_core); bf16 maps to the same
-        # f32 flash blocks (long-context credit assignment needs f32 —
-        # docs/RESULTS.md bf16 boundary)
-        self.backend = ("pallas" if self.backend in ("pallas", "bf16")
-                        else "jnp")
-        t_local = cfg.rollout_len // cfg.sp_size
-        flash_ring = (self.backend == "pallas"
-                      and t_local >= attn_mod.FLASH_MIN_T)
-        # flash blocks cannot trace under the varying-axes checker (see
-        # ppo.fused_dp_engages for the same constraint on the dp kernels)
-        self._sp_check_vma = not flash_ring
+        # ring passes run XLA's float32 block attention under every backend
+        self.backend = "jnp"
         self._sp_ctx = dp_size
         n_envs_dp = cfg.n_envs // dp_size
         mb_dp = cfg.minibatch_size // dp_size
@@ -636,11 +612,11 @@ class Trainer:
         def epoch_local(ts, key):
             return seqpar.train_epoch_sp(
                 cfg, self.env, ts, key, cfg.mesh_axis, "sp",
-                n_envs_dp, mb_dp, self.backend)
+                n_envs_dp, mb_dp)
 
         self._train_epoch = jax.jit(_shard_map(
             epoch_local, self.mesh, in_specs=(P(), P()),
-            out_specs=(P(), P()), check_vma=self._sp_check_vma))
+            out_specs=(P(), P())))
 
         def make_eval(det):
             return jax.jit(_shard_map(
@@ -651,8 +627,7 @@ class Trainer:
                     axis_name=(cfg.mesh_axis, "sp"),
                     deterministic=det,
                 ),
-                self.mesh, in_specs=(P(), P()), out_specs=P(),
-                check_vma=self._sp_check_vma))
+                self.mesh, in_specs=(P(), P()), out_specs=P()))
 
         self._evaluate = make_eval(False)
         self._evaluate_det = make_eval(True)
@@ -686,23 +661,22 @@ class Trainer:
         composition is bit-equal to fit_step
         (tests/test_fit_dispatch.py); across the new jit boundaries the
         compiled programs differ only at XLA fusion-rounding (FMA) level.
-        What changes is compile granularity — the relief valve for
-        windows where even a one-fit fused program's cold compile RPC
-        kills the transport worker (T=16384, docs/RESULTS.md round 5)."""
+        What changes is compile granularity: four smaller programs in
+        place of one, for windows whose fused fit program is very large
+        to compile."""
         from ppoc_tpu.algo import recurrent
 
         cfg, env, backend = self.cfg, self.env, self.backend
-        seq_backend = backend if backend in ("pallas", "bf16") else "jnp"
 
-        def _rollout(policy_params, v_params, k):
-            traj, _carry, _vp = ppo.rollout(
+        def _rollout(policy_params, k):
+            traj, _carry = ppo.rollout(
                 cfg, env, policy_params, k, cfg.n_envs, cfg.rollout_len,
-                backend, None, None, v_params=v_params, return_values=True)
+                backend)
             return traj
 
         def _values_adv(v_params, traj):
             vpair = recurrent.compute_values_rnn(cfg, v_params, traj,
-                                                 backend=seq_backend)
+                                                 backend=backend)
             adv, target = ppo.compute_advantages(
                 cfg, env, v_params, traj, None, "jnp", vpair)
             return vpair, adv, target, jnp.mean(traj.reward)
@@ -711,12 +685,12 @@ class Trainer:
             return recurrent.value_phase_rnn(
                 cfg, ts, traj, target, k, None, cfg.minibatch_size,
                 v_old=vpair[0] if cfg.clip_value > 0.0 else None,
-                backend=seq_backend)
+                backend=backend)
 
         def _pphase(ts, traj, adv, k, target):
             return recurrent.policy_phase_rnn(
                 cfg, env, ts, traj, adv, k, None, cfg.minibatch_size,
-                backend=seq_backend,
+                backend=backend,
                 target=target if cfg.aux_value_coeff > 0.0 else None)
 
         self._ph_rollout = jax.jit(_rollout)
@@ -730,8 +704,8 @@ class Trainer:
             # threaded between dispatches; same per-step key stream as
             # the monolithic scan (rollout_rnn splits k_scan into
             # `length` keys — we do the identical split host-side and
-            # feed slices).  The bare monolithic decode scan crashes the
-            # transport worker past ~10k steps (docs/RESULTS.md r5).
+            # feed slices) — a compile-size option: one segment program
+            # in place of a window-long decode scan.
             from ppoc_tpu.envs.core import vector_reset
 
             @functools.partial(jax.jit, static_argnums=(2,))
@@ -803,8 +777,7 @@ class Trainer:
                     cfg.rollout_len, deterministic=False,
                     force_truncate=True)
             else:
-                traj = self._ph_rollout(self.state.policy_params,
-                                        self.state.v_params, k_roll)
+                traj = self._ph_rollout(self.state.policy_params, k_roll)
             vpair, adv, target, mean_rew = self._ph_values_adv(
                 self.state.v_params, traj)
             self.state, v_loss = self._ph_vphase(
@@ -933,8 +906,7 @@ class Trainer:
     def transplant_value_trunk(self) -> None:
         """Replace the POLICY trunk's encoder with a copy of the CRITIC's,
         keeping the action head and log_std, and reset the policy Adam
-        moments.  The measured rescue for the recall_long plateau
-        (docs/RESULTS.md round 5): the critic builds the cue-retrieval
+        moments.  The measured rescue for the recall_long plateau: the critic builds the cue-retrieval
         attention circuit through supervised value regression within ~3
         epochs; a policy whose own gradient cannot bootstrap that circuit
         (zero head readout => no surrogate gradient into attention) lifts
@@ -972,10 +944,9 @@ class Trainer:
             raise ValueError(
                 "solve() compiles the whole train-until loop as ONE device "
                 "program — strictly larger than the fused epoch the "
-                "fit_dispatch/fits_per_program/rollout_chunk relief valves "
-                "exist to avoid (their target regime crashes on oversized "
-                "cold compiles, docs/RESULTS.md r5); use "
-                "train(stop_at_R=...) with these settings"
+                "fit_dispatch/fits_per_program/rollout_chunk compile-size "
+                "options exist to split; use train(stop_at_R=...) with "
+                "these settings"
             )
         if self._solve_fn is not None and self._solve_args != (target_R, max_epochs):
             self._solve_fn = None
@@ -995,13 +966,11 @@ class Trainer:
                         cfg.n_envs // dp_size,
                         cfg.minibatch_size // dp_size,
                         cfg.eval_envs // total,
-                        self.backend,
                     )
 
                 self._solve_fn = jax.jit(_shard_map(
                     solve_local_sp, self.mesh,
-                    in_specs=(P(), P()), out_specs=(P(), P(), P()),
-                    check_vma=self._sp_check_vma))
+                    in_specs=(P(), P()), out_specs=(P(), P(), P())))
             elif getattr(self, "_mp_ctx", None) is not None:
                 # any model-parallel mode (tp/pp/ep): one shard_map'd
                 # train_until over the stored 2-D mesh context

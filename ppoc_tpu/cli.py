@@ -13,19 +13,19 @@ import dataclasses
 import json
 import sys
 
-from ppoc_tpu.config import (PPOConfig, reference_preset, tpu_preset,
+from ppoc_tpu.config import (PPOConfig, reference_preset, throughput_preset,
                              tuned_preset)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ppoc_tpu",
-        description="TPU-native PPO trainer (capabilities of cube1324/ppo.c)",
+        description="PPO trainer in JAX (capabilities of cube1324/ppo.c)",
     )
-    p.add_argument("--preset", choices=["reference", "tpu", "tuned"],
+    p.add_argument("--preset", choices=["reference", "throughput", "tuned"],
                    default="reference",
                    help="base config: 'reference' = parity with src/main.c "
-                        "hyperparameters; 'tpu' = throughput-sized")
+                        "hyperparameters; 'throughput' = large-batch sized")
     p.add_argument("--save", metavar="PATH", default=None,
                    help="checkpoint path written after training "
                         "(reference: ppo_model.bin, src/main.c:58)")
@@ -113,8 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hidden layer widths (reference CLI arg, src/main.c:21-23)")
     p.add_argument("--actor", choices=["host", "device"], default="host",
                    help="gym:* envs only — 'host': numpy policy on the host, "
-                        "weights synced once per fit (fast on high-latency "
-                        "transports); 'device': batched device sampling")
+                        "weights synced once per fit (no device round trip "
+                        "per step); 'device': batched device sampling")
     p.add_argument("--overlap", action="store_true",
                    help="host-bridge actor/learner overlap: collect window "
                         "i+1 on the host while the device fits window i "
@@ -162,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> PPOConfig:
-    cfg = {"reference": reference_preset, "tpu": tpu_preset,
+    cfg = {"reference": reference_preset, "throughput": throughput_preset,
            "tuned": tuned_preset}[args.preset]()
     overrides = {}
     for f in dataclasses.fields(PPOConfig):
@@ -189,11 +189,10 @@ def _json_safe(row: dict) -> dict:
 def main(argv=None) -> int:
     import os
 
-    # PPOC_PLATFORM / PPOC_CPU_DEVICES: force the JAX platform before
-    # backend init.  Needed because plain JAX_PLATFORMS=cpu does not
-    # override an ambient platform plugin — only the config API does; this
-    # is how supervised/elastic child processes (utils/supervisor.py) and
-    # tests pin themselves to CPU.
+    # PPOC_PLATFORM / PPOC_CPU_DEVICES: pin the JAX platform (and the
+    # virtual CPU device count) through the config API before backend
+    # init — how supervised/elastic child processes (utils/supervisor.py)
+    # and tests pin themselves to the CPU.
     plat = os.environ.get("PPOC_PLATFORM")
     if plat:
         import jax
@@ -233,7 +232,10 @@ def main(argv=None) -> int:
 
     if args.supervise:
         # elastic mode: this process becomes the supervisor; training runs
-        # in child processes restarted from the checkpoint on failure
+        # in child processes restarted from the checkpoint on failure.
+        # The supervisor never initializes a JAX backend: a JAX process
+        # reserves most of the GPU's memory on first use, and the child
+        # must be the one process on the card
         if not (args.save and args.checkpoint_every > 0):
             parser.error("--supervise requires --save PATH and "
                          "--checkpoint-every N (the restart source)")

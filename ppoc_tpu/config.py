@@ -1,11 +1,11 @@
 """Training configuration.
 
-TPU-native analogue of the reference's hard-coded hyperparameters in
+Analogue of the reference's hard-coded hyperparameters in
 ``src/main.c:20-44`` and the ``create_ppo`` signature (``include/ppo.h:30``,
 ``src/ppo.cu:6``).  Every reference hyperparameter is a first-class field with
-the reference default; the TPU-only knobs (number of vectorized envs, rollout
-length, mesh axes, kernel backend) have no reference counterpart because the
-reference steps exactly one host environment.
+the reference default; the other knobs (number of vectorized envs, rollout
+length, mesh axes, kernel backend) have no reference counterpart because
+the reference steps exactly one host environment.
 """
 from __future__ import annotations
 
@@ -81,12 +81,13 @@ class PPOConfig:
                                   # segment's J — for apples-to-apples
                                   # parity tables
 
-    # --- TPU execution ----------------------------------------------------
-    kernel_backend: str = "auto"  # "pallas" | "jnp" | "bf16" | "auto"
-                                  # (auto = pallas on TPU). "bf16": f32
-                                  # master weights, bf16 MXU matmuls —
-                                  # 1.2-1.7x on large-minibatch configs
-                                  # with identical solve-epoch counts
+    # --- execution --------------------------------------------------------
+    kernel_backend: str = "jnp"   # "jnp" (float32) | "bf16" (f32 master
+                                  # weights, bfloat16 matmul operands with
+                                  # f32 accumulation).  Attention picks
+                                  # its core from the window and the
+                                  # platform under either
+                                  # (models/attn.attention_core)
     mesh_axis: str = "dp"         # data-parallel mesh axis name
     tp_size: int = 1              # tensor-parallel degree: shard the MLPs'
                                   # hidden dim over a second mesh axis "tp"
@@ -129,7 +130,7 @@ class PPOConfig:
                                   # the rollout window (models/attn.py) —
                                   # the attention model family for
                                   # partially-observable envs.  Training
-                                  # applies it PARALLEL over time (MXU
+                                  # applies it PARALLEL over time (batched
                                   # GEMMs, BPTT depth 1 vs the GRU's T);
                                   # rollouts decode with a KV cache.
                                   # Same sequence-minibatch update path and
@@ -170,12 +171,10 @@ class PPOConfig:
                                   # (random-policy measurement)
     shuffle_block: int = 0        # >0: shuffle minibatch assignment at this
                                   # block-of-rows granularity instead of per
-                                  # row.  The row-level gather is the
-                                  # large-minibatch update's bandwidth wall
-                                  # (~2% of HBM bandwidth for 44-byte rows;
-                                  # 108 of the reacher value phase's 134 ms
-                                  # — docs/RESULTS.md round 5); aligned
-                                  # blocks gather at full bandwidth.  Every
+                                  # row.  A row-level gather of small rows
+                                  # runs far below memory bandwidth at
+                                  # large minibatches; aligned blocks
+                                  # gather as contiguous copies.  Every
                                   # row still appears exactly once per
                                   # epoch; assignment is uniformly random
                                   # at block resolution.  0 = the
@@ -194,8 +193,7 @@ class PPOConfig:
                                   # policy trunk's encoder is replaced by
                                   # a copy of the CRITIC's (heads and
                                   # log_std kept, policy Adam moments
-                                  # reset).  Rationale (measured,
-                                  # docs/RESULTS.md round 5): the
+                                  # reset).  Rationale: the
                                   # recall_long trap is a policy-side
                                   # chicken-and-egg — the critic builds
                                   # the cue-retrieval circuit supervised
@@ -220,8 +218,7 @@ class PPOConfig:
                                   # head readout => no gradient into
                                   # attention) that the critic never
                                   # suffers because value regression is
-                                  # supervised — measured anatomy in
-                                  # docs/RESULTS.md round 5.  Requires
+                                  # supervised.  Requires
                                   # attn_dim > 0; not with sp_size > 1
     fit_dispatch: str = "fused"   # "fused" (the architecture default: one
                                   # fit = ONE jitted program) or "phased"
@@ -234,41 +231,31 @@ class PPOConfig:
                                   # tests/test_fit_dispatch.py); compiled
                                   # programs differ only at XLA
                                   # fusion-rounding (FMA) level across the
-                                  # new jit boundaries.
-                                  # The next relief valve below
-                                  # fits_per_program: at T=16384 even a
-                                  # ONE-fit fused program's cold compile
-                                  # RPC crashes the transport worker;
-                                  # the phase programs stay under the
-                                  # ceiling (docs/RESULTS.md round 5)
+                                  # new jit boundaries.  A compile-size
+                                  # option: four smaller programs in place
+                                  # of one fit program
     rollout_chunk: int = 0        # >0 (with fit_dispatch="phased"): the
                                   # decode rollout runs as ceil(T/chunk)
                                   # dispatches of ONE compiled chunk-step
                                   # scan program, threading (env state,
                                   # obs, trunk cache) between dispatches —
                                   # same per-step key stream as the
-                                  # monolithic scan.  The deepest relief
-                                  # valve: the bare 16384-step decode scan
-                                  # crashes the transport worker on cold
-                                  # compile (threshold measured between
-                                  # 9216 ok and 12288 crash —
-                                  # docs/RESULTS.md round 5); chunked,
-                                  # the one compiled segment is reused
-                                  # across the window.  Applies to the
-                                  # training rollout AND evaluation.
+                                  # monolithic scan.  A compile-size
+                                  # option: one compiled segment is
+                                  # reused across the window in place of
+                                  # a window-long decode scan.  Applies to
+                                  # the training rollout AND evaluation.
                                   # Must divide rollout_len and eval_len
     fits_per_program: int = 0     # >0: compile the training epoch as
                                   # ceil(fits_per_epoch / N)-dispatch chunks
                                   # of N fits each instead of ONE fused
                                   # scan-of-fits program.  Bit-identical
                                   # training (same per-fit key stream, same
-                                  # metrics); the dial exists because a
-                                  # fused program's cold compile grows with
-                                  # fits_per_epoch x rollout_len and at
-                                  # extreme windows (T=8192 attention) the
-                                  # single compile+first-run RPC can exceed
-                                  # what the accelerator transport survives
-                                  # (docs/RESULTS.md round 5).  0 = fused
+                                  # metrics); a compile-size option: a
+                                  # fused program's compile grows with
+                                  # fits_per_epoch x rollout_len, and
+                                  # extreme windows (T=8192 attention)
+                                  # compile one fit at a time.  0 = fused
                                   # (the architecture default); must divide
                                   # fits_per_epoch; single-device meshes
                                   # only
@@ -296,6 +283,9 @@ class PPOConfig:
         return dataclasses.replace(self, **kw)
 
 
+KERNEL_BACKENDS = ("jnp", "bf16")
+
+
 def validate(cfg: PPOConfig) -> PPOConfig:
     """Config-consistency validation bank — the SINGLE definition.
 
@@ -306,6 +296,11 @@ def validate(cfg: PPOConfig) -> PPOConfig:
     a mesh (device counts, axis names, per-shard divisibility) stay with the
     consumer that owns the mesh.  Returns ``cfg`` so call sites can chain.
     """
+    if cfg.kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(
+            f"kernel_backend must be one of {KERNEL_BACKENDS}, got "
+            f"{cfg.kernel_backend!r}"
+        )
     if cfg.eval_estimator not in ("completed", "reference"):
         raise ValueError(
             f"eval_estimator must be 'completed' or 'reference', got "
@@ -424,7 +419,7 @@ def validate(cfg: PPOConfig) -> PPOConfig:
             raise ValueError(
                 "fits_per_program supports single-device runs only "
                 "(the parallel modes wrap the fused epoch program); its "
-                "target regime — extreme single-chip windows — doesn't "
+                "target regime — extreme single-device windows — doesn't "
                 "overlap them"
             )
     if cfg.rnn_hidden > 0 or cfg.attn_dim > 0:
@@ -523,11 +518,12 @@ def reference_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
     return PPOConfig(env=env, seed=seed)
 
 
-def tpu_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
+def throughput_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
     """Throughput preset: many vectorized envs, large minibatches.
 
-    Same algorithm, but sized so the MXU sees real work and the number of
-    sequential optimizer steps per second of data collected is far smaller.
+    Same algorithm, but sized so the matrix units see real work and the
+    number of sequential optimizer steps per second of data collected is
+    far smaller.
     """
     return PPOConfig(
         env=env,
@@ -540,9 +536,8 @@ def tpu_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
         n_epochs_policy=4,
         eval_envs=256,
         eval_len=200,
-        # block-shuffled minibatches: the row-level gather is the
-        # large-minibatch update's bandwidth wall (docs/RESULTS.md round
-        # 5 — reacher phases 3-5x faster, solve-epoch counts identical)
+        # block-shuffled minibatches: contiguous block gathers in place of
+        # the large-minibatch update's row-level gather
         shuffle_block=1024,
     )
 
@@ -554,9 +549,8 @@ def tuned_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
     chip schedule probe cut the update epochs to 5 value + 2 policy (the
     reference's 10+4 over-fits each buffer at these learning rates —
     fewer, larger steps solve in the same epochs at ~half the fit cost).
-    Solves Pendulum in 0.060-0.071 s on one v5e chip (70-84x the
-    reference; `bench.py --tuned`, docs/RESULTS.md).  The headline bench
-    deliberately keeps the reference's exact hyperparameters instead.
+    The headline bench deliberately keeps the reference's exact
+    hyperparameters instead (`bench.py --tuned` runs this one).
     """
     return PPOConfig(
         env=env,
@@ -567,7 +561,6 @@ def tuned_preset(env: str = "pendulum", seed: int = 0) -> PPOConfig:
         fits_per_epoch=4,
         eval_envs=64,
         eval_len=200,
-        kernel_backend="pallas",
         lr_policy=1e-3,
         lr_v=1e-3,
         clip_eps=0.3,

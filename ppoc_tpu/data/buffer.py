@@ -1,11 +1,11 @@
 """Device-resident trajectory buffer: SoA storage, shuffle, minibatch gather.
 
-TPU-native equivalent of the reference ``TrajectoryBuffer``
+Equivalent of the reference ``TrajectoryBuffer``
 (``src/trajectory_buffer.cu``, ``include/trajectory_buffer.h:15-79``).  The
 reference keeps nine parallel host+device arrays with live pointers swung
 between them (create, src/trajectory_buffer.cu:41-94; migration :227-273);
 here the buffer is an immutable pytree of ``[rows, ...]`` arrays that never
-leaves HBM — rollout, GAE and the update phases all consume it inside one
+leaves device memory — rollout, GAE and the update phases all consume it inside one
 jitted program, so buffer_to_device/host have no equivalent by design.
 
 Shuffling reproduces the reference's permutation-index scheme
@@ -66,11 +66,9 @@ def block_permutation_minibatches(key: jax.Array, n_rows: int, n_mb: int,
     aligned row blocks and deal them into [n_mb, mb_size/block] id slices
     (tail blocks dropped, mirroring the reference's row-level tail drop).
 
-    Rationale (chip-measured, docs/RESULTS.md round 5): the row-level
-    gather is the large-minibatch update's bandwidth wall — 6.1M random
-    44-byte rows move at ~2% of HBM bandwidth (108 ms of the reacher value
-    phase's 134 ms), because each row is far below the HBM access
-    granularity.  Block-shuffled minibatches keep every statistical
+    Rationale: the row-level gather of a large minibatch moves millions
+    of rows of a few dozen bytes each, far below the memory system's
+    access granularity, so it runs at a small share of the bandwidth.  Block-shuffled minibatches keep every statistical
     property that matters for SGD (each row appears exactly once per
     epoch; assignment to minibatches is uniformly random at block
     resolution) while making the gather a contiguous-block copy that runs
@@ -89,7 +87,7 @@ def gather_blocks(buf: Any, block_ids: jax.Array, block: int) -> Any:
     """Gather [k] aligned row blocks of ``block`` rows each -> k*block rows.
 
     Each gathered unit is ``block * row_bytes`` contiguous, so this runs at
-    HBM bandwidth where row-level ``gather`` pays per-row access latency."""
+    memory bandwidth where row-level ``gather`` pays per-row access latency."""
     def one(a):
         blocked = a.reshape((a.shape[0] // block, block) + a.shape[1:])
         out = jnp.take(blocked, block_ids, axis=0)

@@ -1,6 +1,6 @@
 """Pure-functional environment interface.
 
-TPU-native replacement for the reference's vtable env abstraction
+Replacement for the reference's vtable env abstraction
 (``include/env.h:7-15``) and the embedded-CPython Gymnasium bridge
 (``src/gym_env.c``, ``scripts/gym_env.py``).  Instead of host function
 pointers called once per step, an environment here is a pair of pure

@@ -5,7 +5,7 @@ Capability-parity replacement for the reference's embedded-CPython bridge
 the reference embeds a Python interpreter inside its C binary to step ONE
 Gymnasium env per rollout step; here the framework *is* Python, so the bridge
 is the other way around — a vectorized Gymnasium actor on the host feeding
-the jitted TPU learner (``ppo.update_step``).
+the jitted device learner (``ppo.update_step``).
 
 This is the actor/learner split the reference has (CPU rollouts, GPU
 updates, src/ppo.cu:479-539) and the pure-JAX envs deliberately collapse;
@@ -98,7 +98,7 @@ class GymVecEnv:
         horizon = gspec.max_episode_steps or 1000
         if not discrete:
             # EnvSpec carries SCALAR action bounds; silently taking dim 0
-            # would mis-scale asymmetric Boxes (ADVICE r1 #4) — validate.
+            # would mis-scale asymmetric Boxes — validate.
             low = np.asarray(act_space.low, np.float32).reshape(-1)
             high = np.asarray(act_space.high, np.float32).reshape(-1)
             if not (np.all(low == low[0]) and np.all(high == high[0])):

@@ -86,9 +86,9 @@ def make_recall_long() -> Env:
 
 @register("recall_xl")
 def make_recall_xl() -> Env:
-    """1024-step recall: the window length where the flash-attention
-    kernel engages in training (T >= models/attn.FLASH_MIN_T,
-    ops/pallas_attn.py) — the kernel's production workload."""
+    """1024-step recall: a window where training's attention runs the
+    flash kernel on a GPU (T >= models/attn.FLASH_MIN_T,
+    ops/flash_attn.py)."""
     return _make_recall("recall_xl", 1024)
 
 
@@ -109,7 +109,7 @@ def make_recall_4k() -> Env:
 @register("recall_8k")
 def make_recall_8k() -> Env:
     """8192-step recall: an 8191-step retrieval distance (trained + served
-    round 5, docs/RESULTS.md)."""
+    round 5)."""
     return _make_recall("recall_8k", 8192)
 
 

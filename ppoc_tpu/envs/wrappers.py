@@ -73,10 +73,9 @@ def affine_obs(env: Env, loc, scale, name: str = None) -> Env:
     usually come from :func:`calibrate` (a random-policy measurement run).
     Physics, rewards and episode structure are untouched.
 
-    The wrapped spec name gains an ``#affine`` suffix so the whole-rollout
-    Pallas kernels (ops/pallas_rollout.py, keyed by env name) correctly
-    fall back to the generic scan instead of emitting the BASE env's raw
-    observations.
+    The wrapped spec name gains an ``#affine`` suffix, so nothing keyed by
+    env name mistakes the wrapped env for its base (whose raw
+    observations differ).
     """
     loc = jnp.asarray(loc, jnp.float32)
     scale = jnp.asarray(scale, jnp.float32)
@@ -112,8 +111,7 @@ def calibrate(cfg, n_envs: int = 64, n_steps: int = 200, seed: int = 0):
     The device-native route to observation normalization for on-device
     envs: run ``n_envs`` x ``n_steps`` uniform-random-action steps of the
     BASE env, take per-dimension mean/std, and bake them into the config —
-    a generic version of the hand-derived ``mountain_car_norm`` recipe
-    (docs/RESULTS.md).  Pure measurement: the training run itself stays
+    a generic version of the hand-derived ``mountain_car_norm`` recipe.  Pure measurement: the training run itself stays
     bit-replayable because the statistics are constants in the config.
     """
     from . import make
@@ -239,7 +237,7 @@ def make_cartpole_po() -> Env:
     """CartPole with BOTH velocities hidden (obs = cart position, pole
     angle).  The memoryless ceiling is low (~50 steps measured — the policy
     cannot tell which way the pole is falling); a GRU policy recovers the
-    velocities and balances (docs/RESULTS.md)."""
+    velocities and balances."""
     from .core import make as _make
 
     return mask_obs(_make("cartpole"), [0, 2], name="cartpole_po")
@@ -437,7 +435,7 @@ def make_mountain_car_norm() -> Env:
     init the velocity signal — the one that matters for the energy-pumping
     solution — is nearly invisible to the first layer.  Normalizing is the
     config-level change that makes the sparse-reward task solvable without
-    touching the algorithm (VERDICT r1 next #5).
+    touching the algorithm.
     """
     from . import mountain_car as mc
 

@@ -10,12 +10,14 @@ trunk slot (``policy_params["mlp"]`` / ``v_params``) and flows through the
 same sequence-minibatch PPO machinery as the recurrent family
 (algo/recurrent.py) — consumers dispatch structurally via :func:`is_attn`.
 
-TPU shape: training-time application is fully PARALLEL over time — unlike
-the GRU's O(T) ``lax.scan``, the whole [T, B] window is a handful of batched
-GEMMs ([T*B, d] projections and [T, T] score contractions) that tile
-straight onto the MXU; only the rollout is sequential (one decode step per
-env step, carried KV cache).  This is the architectural reason to prefer
-attention on TPU for long windows: BPTT depth 1 instead of T.
+Shape of the work: training-time application is fully PARALLEL over time —
+unlike the GRU's O(T) ``lax.scan``, the whole [T, B] window is a handful of
+batched GEMMs ([T*B, d] projections and [T, T] score contractions); only the
+rollout is sequential (one decode step per env step, carried KV cache).
+This is the architectural reason to prefer attention for long windows:
+BPTT depth 1 instead of T.  The attention core itself is chosen per window
+by :func:`attention_core`: XLA's materialized-mask path, or past
+``FLASH_MIN_T`` steps on a GPU the flash kernel (ops/flash_attn.py).
 
 Architecture (pre-LN blocks, learned positional embedding):
 
@@ -60,9 +62,12 @@ AttnParams = Dict[str, object]
 NEG_INF = -1e9  # large-negative mask value: exp() underflows to exactly 0 in
                 # f32, and (unlike -inf) keeps softmax gradients NaN-free
 
-FLASH_MIN_T = 1024  # chip-measured crossover: the flash kernel wins from
-                    # ~1024-step windows up (ops/pallas_attn.py); below, the
-                    # materialized-mask XLA path is faster
+# Windows from which attention runs the flash kernel on a GPU
+# (attention_core).  On an H100 the kernel's fwd+bwd beats XLA's path at
+# every window measured, from 512 steps (0.51 vs 1.03 ms at 32 envs x 4
+# heads x hd 8; 0.80 vs 1.11 ms at d 512) up to 4096, and XLA cannot run
+# 8192 at all (bench_attn.py; PERF.md).  Shorter windows keep XLA's path.
+FLASH_MIN_T = 512
 
 # Which GEMM sites the "bf16" backend actually runs in bf16.  The full set
 # is the production default; the bf16 long-context bisect (VERDICT r4 #5,
@@ -145,9 +150,8 @@ def _ln(x: jax.Array, gb) -> jax.Array:
 
 
 def _dot(a: jax.Array, w: jax.Array, bf16: bool) -> jax.Array:
-    """a @ w, optionally with bf16 MXU inputs and f32 accumulation (the
-    mixed-precision recipe of mlp.apply's bf16 backend: f32 matmuls run as
-    multi-pass bf16 on the MXU; casting halves the passes)."""
+    """a @ w, optionally with bf16 operands and f32 accumulation (the
+    mixed-precision recipe of mlp.apply's bf16 backend)."""
     if bf16:
         return jnp.dot(a.astype(jnp.bfloat16), w.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32)
@@ -195,13 +199,58 @@ def _mha(q: jax.Array, k: jax.Array, v: jax.Array,
     [T_q, T_k, ...] mask; returns [T_q, ..., H, hd]."""
     hd = q.shape[-1]
     # f32 scores/softmax regardless of the q/k dtype (bf16 inputs keep the
-    # MXU pass cheap; the softmax statistics must not round to bf16)
+    # matmul cheap; the softmax statistics must not round to bf16)
     scores = jnp.einsum("t...hk,s...hk->ts...h", q, k,
                         preferred_element_type=jnp.float32) / math.sqrt(hd)
     scores = jnp.where(mask[..., None], scores, NEG_INF)
     w = jax.nn.softmax(scores, axis=1)
     return jnp.einsum("ts...h,s...hk->t...hk", w.astype(v.dtype), v,
                       preferred_element_type=jnp.float32)
+
+
+def _platform() -> str:
+    return jax.default_backend()
+
+
+def uses_flash(T: int, backend: str) -> bool:
+    """Does a T-step window's attention run the flash kernel?  Only on a
+    GPU, from FLASH_MIN_T steps, and under "bf16" only while both attention
+    products are bf16 sites (the kernel carries one operand dtype).  The
+    CPU always runs XLA's path."""
+    if _platform() != "gpu" or T < FLASH_MIN_T:
+        return False
+    return backend != "bf16" or {"scores", "av"} <= BF16_SITES
+
+
+def attention_core(reset_after: jax.Array, backend: str = "jnp"):
+    """The attention core for one window, ``(q, k, v) -> out`` on
+    [T, ..., H, hd] tensors with causal episode masking from
+    ``reset_after`` — the single place that picks between the flash kernel
+    (:func:`uses_flash`) and XLA's path, which materializes the
+    [T, T, ...] mask and score planes.  Under "bf16" the XLA path casts
+    q/k (site "scores") and v (site "av") to bf16 separately, with f32
+    softmax and accumulation either way."""
+    T = reset_after.shape[0]
+    bf16 = backend == "bf16"
+    if uses_flash(T, backend):
+        from ppoc_tpu.ops import flash_attn
+
+        ep = episode_ids(reset_after)
+        dt = jnp.bfloat16 if bf16 else None
+        return lambda q, k, v: flash_attn.flash_mha(q, k, v, ep,
+                                                    compute_dtype=dt)
+    mask = causal_episode_mask(reset_after)
+    bf16_sc = bf16 and "scores" in BF16_SITES
+    bf16_av = bf16 and "av" in BF16_SITES
+
+    def mha(q, k, v):
+        if bf16_sc:
+            q, k = q.astype(jnp.bfloat16), k.astype(jnp.bfloat16)
+        if bf16_av:
+            v = v.astype(jnp.bfloat16)
+        return _mha(q, k, v, mask)
+
+    return mha
 
 
 def _qkv(blk, u: jax.Array,
@@ -227,10 +276,8 @@ def apply_seq(
     """Head outputs [T, ..., out] for a whole window, all steps in parallel.
 
     ``with_cache=True`` additionally returns the per-layer key/value tensors
-    (lists of [T, ..., H, hd]) for :func:`decode_next`.  ``backend="pallas"``
-    routes the attention core through the flash kernel
-    (ops/pallas_attn.flash_mha): score tiles stay in VMEM instead of
-    materializing [T, T, ...] planes in HBM — the long-window path.
+    (lists of [T, ..., H, hd]) for :func:`decode_next`.  The attention
+    core comes from :func:`attention_core`.
     ``return_hidden=True`` returns ``(out, hidden)`` where ``hidden`` is the
     final-LN trunk plane the head reads ([T, ..., d]) — the auxiliary value
     head's input (cfg.aux_value_coeff; exclusive with with_cache).
@@ -244,34 +291,9 @@ def apply_seq(
             f"init the trunk with t_max >= the rollout length")
     bf16 = backend == "bf16"
     site = (lambda s: bf16 and s in BF16_SITES)
-    bf16_sc, bf16_av = site("scores"), site("av")
     pos = attn["pos"][:T].reshape((T,) + (1,) * (xs.ndim - 2) + (-1,))
     h = _embed(attn, xs, site("embed")) + pos
-    if (backend == "pallas" or (bf16 and bf16_sc and bf16_av)) \
-            and T >= FLASH_MIN_T:
-        from ppoc_tpu.ops.pallas_attn import flash_mha
-
-        ep = episode_ids(reset_after)
-        dt = jnp.bfloat16 if bf16 else None
-        mha = lambda q, k, v: flash_mha(q, k, v, ep, compute_dtype=dt)
-    elif bf16:
-        # short windows (or a bisected attention site, BF16_SITES): the
-        # XLA path with bf16 q/k/v (f32 accumulation) — halves the
-        # score-plane operand traffic; the scores (Q.K) and av (prob x V)
-        # products gate separately for the long-context precision bisect
-        mask = causal_episode_mask(reset_after)
-
-        def mha(q, k, v):
-            # _mha's einsums carry preferred_element_type=f32, so the
-            # result is already f32
-            if bf16_sc:
-                q, k = q.astype(jnp.bfloat16), k.astype(jnp.bfloat16)
-            if bf16_av:
-                v = v.astype(jnp.bfloat16)
-            return _mha(q, k, v, mask)
-    else:
-        mask = causal_episode_mask(reset_after)
-        mha = lambda q, k, v: _mha(q, k, v, mask)
+    mha = attention_core(reset_after, backend)
     ks, vs = [], []
     for blk in attn["blocks"]:
         u = _ln(h, blk["ln1"])
@@ -291,19 +313,6 @@ def apply_seq(
     return (out, hn) if return_hidden else out
 
 
-def _ring_core(T_local: int, backend: str):
-    """Pick the ring-attention core for a time shard: the flash-block ring
-    (per-block VMEM score tiles, ops/pallas_attn.flash_mha_block) once the
-    LOCAL shard reaches the flash regime — the jnp ring materializes a
-    [T_local, T_local, ...] score plane in HBM per ring step, the exact
-    footprint the flash kernel removes — else the jnp ring."""
-    from ppoc_tpu.parallel import ring_attn
-
-    if backend in ("pallas", "bf16") and T_local >= FLASH_MIN_T:
-        return ring_attn.ring_mha_flash
-    return ring_attn.ring_mha_ids
-
-
 def apply_seq_sp(
     params: AttnParams,
     xs: jax.Array,            # [T_local, ..., in]: this device's TIME shard
@@ -311,16 +320,14 @@ def apply_seq_sp(
     activation: str,
     axis_name: str = "sp",
     with_cache: bool = False,
-    backend: str = "jnp",
 ):
     """Sequence-parallel :func:`apply_seq`: the window is time-sharded over
     mesh axis ``axis_name`` and every attention core runs as ring attention
-    (parallel/ring_attn) — K/V blocks rotate over ICI while
-    LayerNorm/FF/head stay position-local.  Positions and episode ids are
-    GLOBAL (shard offset = axis_index * T_local), so the result equals the
-    unsharded apply_seq on the gathered window up to f32 reassociation.
-    ``backend="pallas"`` at T_local >= FLASH_MIN_T runs each ring block
-    through the flash kernel (see :func:`_ring_core`).
+    (parallel/ring_attn.ring_mha_ids) — K/V blocks rotate between devices
+    while LayerNorm/FF/head stay position-local.  Positions and episode ids
+    are GLOBAL (shard offset = axis_index * T_local), so the result equals
+    the unsharded apply_seq on the gathered window up to f32
+    reassociation.
 
     ``with_cache=True`` returns ``(out, ks, vs, ep)``: the LOCAL per-layer
     K/V time blocks plus the global episode ids, the context
@@ -336,7 +343,6 @@ def apply_seq_sp(
         raise ValueError(
             f"global window {T} x {n} shards exceeds the positional table "
             f"({t_max}); init the trunk with t_max >= the rollout length")
-    ring = _ring_core(T, backend)
     i = jax.lax.axis_index(axis_name)
     pos = jax.lax.dynamic_slice_in_dim(attn["pos"], i * T, T, 0)
     h = _embed(attn, xs) + pos.reshape((T,) + (1,) * (xs.ndim - 2) + (-1,))
@@ -348,7 +354,7 @@ def apply_seq_sp(
         if with_cache:
             ks.append(k)
             vs.append(v)
-        o = ring(q, k, v, ep, ep, axis_name)
+        o = ring_attn.ring_mha_ids(q, k, v, ep, ep, axis_name)
         h = h + _dot(o.reshape(o.shape[:-2] + (-1,)), blk["wo"], False) \
             + blk["bo"]
         h = h + _ff(_ln(h, blk["ln2"]), blk, activation)
@@ -364,7 +370,6 @@ def decode_next_sp(
     ep: jax.Array,            # [T_local, ...] GLOBAL episode ids of the slots
     activation: str,
     axis_name: str = "sp",
-    backend: str = "jnp",
 ) -> jax.Array:
     """Sequence-parallel :func:`decode_next`: next-token t attends the
     time-sharded context (global keys s <= t of the same episode, ringing
@@ -372,10 +377,11 @@ def decode_next_sp(
     online-softmax carry (``self_kv``), so the softmax is globally exact.
     Computes V(s'_t) for GAE in one pass per layer.
     """
+    from ppoc_tpu.parallel import ring_attn
+
     attn = params["attn"]
     T = x_next.shape[0]
     t_max = attn["pos"].shape[0]
-    ring = _ring_core(T, backend)
     i = jax.lax.axis_index(axis_name)
     pos_idx = jnp.minimum(i * T + jnp.arange(T) + 1, t_max - 1)
     h = _embed(attn, x_next) + attn["pos"][pos_idx].reshape(
@@ -383,8 +389,8 @@ def decode_next_sp(
     for blk, k_ctx, v_ctx in zip(attn["blocks"], ks, vs):
         u = _ln(h, blk["ln1"])
         q, k_self, v_self = _qkv(blk, u)
-        o = ring(q, k_ctx, v_ctx, ep, ep, axis_name,
-                 self_kv=(k_self, v_self))
+        o = ring_attn.ring_mha_ids(q, k_ctx, v_ctx, ep, ep, axis_name,
+                                   self_kv=(k_self, v_self))
         h = h + o.reshape(o.shape[:-2] + (-1,)) @ blk["wo"] + blk["bo"]
         h = h + _ff(_ln(h, blk["ln2"]), blk, activation)
     return mlp.apply(params["head"], _ln(h, attn["lnf"]), activation, "jnp")
@@ -408,8 +414,8 @@ def decode_next(
     compute_values_rnn), vectorized over t.
 
     Long windows process the query axis in chunks (``lax.map``): the
-    [T_q, T_k, ...] score planes would otherwise re-materialize in HBM the
-    very footprint the flash kernel removes from apply_seq.
+    [T_q, T_k, ...] score planes would otherwise re-materialize in device
+    memory the very footprint the flash kernel removes from apply_seq.
     """
     T = x_next.shape[0]
     if T > 2 * _DECODE_CHUNK:

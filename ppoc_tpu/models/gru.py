@@ -9,9 +9,9 @@ slot (``policy_params["mlp"]`` / ``v_params``) with a structural kind that
 rollouts and update phases dispatch on (algo/recurrent.py), exactly the way
 MoE trunks do.
 
-TPU shape: the per-step cell is two fused wide GEMMs ([B, D] @ [D, G*H]
-with all gates computed jointly, G = 3 for GRU / 4 for LSTM, so the MXU
-sees one contraction per input/hidden); sequence application is a
+Program shape: the per-step cell is two fused wide GEMMs ([B, D] @
+[D, G*H] with all gates computed jointly, G = 3 for GRU / 4 for LSTM, so
+the matrix units see one contraction per input/hidden); sequence application is a
 ``lax.scan`` over time with episode-boundary masking, so a whole [T, E]
 rollout window BPTTs as one compiled program.
 

@@ -13,9 +13,8 @@ plus stateless apply functions:
     ``x @ W + b`` then the activation; the last layer is linear.
 
 The manual backward pass (src/neural_network.cu:121-231) is not re-coded
-here: with the jnp backend XLA differentiates and fuses it; with the pallas
-backend the custom VJP in :mod:`ppoc_tpu.ops.pallas_mlp` provides hand-written
-forward+backward kernels (the reference's mat_mul.cu parity).
+here: XLA differentiates the forward and fuses bias + activation into the
+matmuls' epilogues.
 """
 from __future__ import annotations
 
@@ -76,8 +75,8 @@ def _parse_moe_backend(backend: str):
 def apply(params: Params, x: jax.Array, activation: str = "relu", backend: str = "jnp") -> jax.Array:
     """Forward pass on a batch ``x`` of shape [..., fan_in].
 
-    Backends: "jnp" (XLA-fused), "pallas" (fused TPU kernels,
-    ops/pallas_mlp.py), "tp:<axis>" (tensor-parallel forward on tp-local
+    Backends: "jnp" (XLA-fused), "bf16" (bfloat16 matmul operands,
+    float32 accumulation), "tp:<axis>" (tensor-parallel forward on tp-local
     param shards inside shard_map, parallel/tp.py), "pp:<axis>[:M]"
     (GPipe pipeline forward on the local StageParams inside shard_map,
     parallel/pp.py), "moe:<topk>[:bf16]" (mixture-of-experts trunk,
@@ -94,10 +93,6 @@ def apply(params: Params, x: jax.Array, activation: str = "relu", backend: str =
     if moe.is_moe(params):
         ep_axis, topk, bf16 = _parse_moe_backend(backend)
         return moe.apply(params, x, activation, ep_axis, topk, bf16)
-    if backend == "pallas":
-        from ppoc_tpu.ops import pallas_mlp
-
-        return pallas_mlp.mlp_forward(params, x, activation)
     if backend.startswith("tp:"):
         from ppoc_tpu.parallel import tp
 
@@ -108,11 +103,10 @@ def apply(params: Params, x: jax.Array, activation: str = "relu", backend: str =
         return pp.apply_pp(params, x, activation, backend[3:])
     act = _ACTIVATIONS[activation]
     if backend == "bf16":
-        # bf16 MXU matmuls with f32 accumulation and f32 master weights:
-        # the TPU-native mixed-precision recipe for the large-batch regime
-        # (f32 matmuls run as multi-pass bf16 on the MXU; casting inputs
-        # halves the passes and the HBM traffic). Gradients flow in f32
-        # through the cast (its VJP is a cast back).
+        # bf16 matmul operands with f32 accumulation and f32 master
+        # weights: the mixed-precision recipe for the large-batch regime
+        # (bf16 tensor-core rate, half the operand bytes).  Gradients flow
+        # in f32 through the cast (its VJP is a cast back).
         h = x
         for i, (w, b) in enumerate(params):
             h = jnp.dot(h.astype(jnp.bfloat16), w.astype(jnp.bfloat16),

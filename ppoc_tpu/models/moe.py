@@ -17,7 +17,7 @@ Architecture (per forward):
 with optional top-k gating (``moe_topk``): keep the k largest gate weights
 per input, renormalize, zero the rest.  Compute is DENSE on purpose: at PPO
 scale the experts are tiny MLPs, so evaluating all of them as one stacked
-batched matmul (einsum over the expert dim — an MXU-friendly contraction
+batched matmul (einsum over the expert dim — one dense contraction
 with static shapes) is faster than the sorted scatter/gather dispatch used
 at transformer scale, and no token is ever dropped (no capacity factor).
 Expert parallelism still saves real compute: under ``ep`` sharding each

@@ -1,11 +1,11 @@
 // Native host runtime for ppoc_tpu.
 //
-// TPU-native counterpart of the reference's host-side native code: the C env
+// Counterpart of the reference's host-side native code: the C env
 // engine (src/env.c, include/env.h vtable), the host rollout loop
 // (collect_trajectories, src/ppo.cu:54-79 — host pointers, one env) and the
 // binary checkpoint writer (save_ppo/load_ppo, src/ppo.cu:585-648).
 //
-// On TPU the hot path is the pure-JAX vectorized env engine (ppoc_tpu.envs);
+// On the device the hot path is the pure-JAX vectorized env engine (ppoc_tpu.envs);
 // this library provides
 //   1. a vectorized C++ implementation of every in-repo environment's
 //      physics, used as an independent numerical oracle in the test suite

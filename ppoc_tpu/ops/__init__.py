@@ -1,19 +1,9 @@
-"""Device ops: kernels, optimizer, losses.
+"""Device ops: the flash-attention kernel, optimizer, losses, GAE.
 
-TPU-native replacements for the reference's L2 ops layer (mat_mul.cu,
-activation_function.cu, loss.cu, adam.cu, welford_var.h).  Each Pallas kernel
-keeps a pure-jnp twin for cross-checking, mirroring the reference's habit of
-keeping naive CUDA kernels beside the cuBLAS paths (src/mat_mul.cu:83-120).
+Replacements for the reference's L2 ops layer (mat_mul.cu,
+activation_function.cu, loss.cu, adam.cu, welford_var.h).  Matrix products
+are XLA's; the one hand-written kernel (ops/flash_attn.py) keeps a plain
+twin for cross-checking (models/attn._mha), mirroring the reference's habit
+of keeping naive CUDA kernels beside the cuBLAS paths
+(src/mat_mul.cu:83-120).
 """
-import jax
-
-
-def resolve_backend(kernel_backend: str) -> str:
-    """Map the config's kernel_backend to a concrete backend name.
-
-    "auto" selects the Pallas kernels on TPU and the pure-jnp path elsewhere
-    (Pallas runs in interpret mode off-TPU, which is only useful for tests).
-    """
-    if kernel_backend != "auto":
-        return kernel_backend
-    return "pallas" if jax.default_backend() == "tpu" else "jnp"

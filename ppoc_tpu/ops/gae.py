@@ -1,6 +1,6 @@
 """GAE(lambda) as a parallel associative scan over the time axis.
 
-TPU-native equivalent of the reference's two-level block-parallel CUDA scan
+Equivalent of the reference's two-level block-parallel CUDA scan
 (``gae_compute_block_advantage_kernel`` src/ppo.cu:171-213 and
 ``gae_merge_kernel`` src/ppo.cu:215-251) and of the CPU backward recursion
 (src/ppo.cu:326-369).  The masked first-order recurrence

@@ -1,6 +1,6 @@
 """Numerically stable streaming mean/variance (Welford) on device.
 
-TPU-native equivalent of the reference's parallel Welford reduction
+Equivalent of the reference's parallel Welford reduction
 (``welford_var_kernel`` include/welford_var.h:13-50 — per-block shared-memory
 pairwise merge — and the serial host combine ``welford_combine_blocks``
 include/welford_var.h:53-69, used to normalize advantages at

@@ -2,8 +2,9 @@
 
 The reference is single-process/single-GPU with no communication backend
 (SURVEY.md §2a); its only "transport" is cudaMemcpy.  Here distribution is a
-first-class component: a 1-D data-parallel mesh over all chips (ICI within a
-slice, DCN across hosts via ``jax.distributed``), with gradient pmean and
+first-class component: a 1-D data-parallel mesh over all devices (NVLink
+within a host, the network across hosts via ``jax.distributed``), with
+gradient pmean and
 advantage-normalization psum as the only collectives (see ppoc_tpu.algo.ppo).
 A ``model`` axis slot is reserved for tensor parallelism, though the
 reference's <=128-wide MLPs never need it.
@@ -57,9 +58,9 @@ def initialize_distributed(
     init, which the reference never had).  No-op when single-process args
     are absent and the environment provides no cluster configuration."""
     if coordinator_address is None and num_processes is None:
-        # Rely on cluster auto-detection (GKE/Cloud TPU metadata). Failure is
+        # Rely on cluster auto-detection (cluster metadata). Failure is
         # expected on a plain single host (no cluster env) but must not be
-        # silently swallowed on a real cluster (VERDICT r1 weak #4): surface
+        # silently swallowed on a real cluster: surface
         # it as a warning with the cause.
         try:
             jax.distributed.initialize()

@@ -1,10 +1,10 @@
 """Pipeline parallelism for the MLP: layer partitioning + GPipe microbatches.
 
 The reference needs no PP (a 2-hidden-layer MLP, SURVEY.md §2a "not
-required"); this module provides the strategy TPU-natively for deeper
+required"); this module provides the strategy natively in JAX for deeper
 stacks: layers partition into S contiguous stages over a ``pp`` mesh axis,
 microbatches stream through the S-stage pipeline with activations handed to
-the next stage by ``jax.lax.ppermute`` over ICI, and autodiff runs the
+the next stage by ``jax.lax.ppermute``, and autodiff runs the
 reverse schedule automatically (ppermute transposes to the inverse shift).
 
 Training integration (PPOConfig(pp_size=N)): parameters live as

@@ -1,6 +1,6 @@
 """Ring attention: causal episode-masked attention over a time-sharded mesh.
 
-The single-chip long-window path is the flash kernel (ops/pallas_attn.py);
+The single-device long-window path is the flash kernel (ops/flash_attn.py);
 past one device's memory the window itself must shard.  This module is the
 cross-DEVICE long-context axis: the [T, B] window splits into contiguous
 time blocks over an ``sp`` mesh axis (the same axis parallel/sp.py shards
@@ -8,7 +8,9 @@ GAE over), each device keeps its Q block resident, and the K/V blocks
 rotate around the ring via ``ppermute`` — N steps, each overlapping a
 neighbor exchange with a block-attention update, exactly the scaling-book
 ring-attention recipe.  Per-device attention memory is O(T/N · T/N) and the
-wire traffic per step is one K/V block riding ICI.
+wire traffic per step is one K/V block.  Each ring block runs in XLA (a
+flash ring block would need separate query/key episode ids and a
+logsumexp output from the kernel; see ROADMAP).
 
 Numerically this is the flash online-softmax recurrence applied blockwise:
 every device folds each arriving K/V block into (acc, running max, running
@@ -152,71 +154,3 @@ def ring_mha_ids(
     (acc, m, l), _ = state
     l_safe = jnp.where(l == 0.0, 1.0, l)
     return acc / l_safe[..., None]
-
-
-def ring_mha_flash(
-    q: jax.Array,             # [T_local, ..., H, hd]
-    k: jax.Array,
-    v: jax.Array,
-    q_ep: jax.Array,          # [T_local, ...] int32 GLOBAL episode ids
-    k_ep: jax.Array,
-    axis_name: str,
-    self_kv: Tuple[jax.Array, jax.Array] = None,
-) -> jax.Array:
-    """:func:`ring_mha_ids` with every per-block attention computed by the
-    FLASH kernel (ops/pallas_attn.flash_mha_block) — the production
-    long-context composition: the jnp ring materializes a
-    [T_local, T_local, ...] score plane in HBM per ring step, exactly the
-    footprint the flash kernel removes, so past ~1k steps per shard the
-    ring must tile too.  Each arriving K/V block runs one flash call
-    (VMEM score tiles, window-scaled (qt, kt) tiling) returning the
-    (out, lse) pair; blocks fold with the online-softmax merge
-    (pallas_attn.merge_blocks), and BPTT flows through each block's custom
-    VJP plus the differentiable merge.
-
-    The ring unrolls in Python (axis size is static) so each step's
-    ppermute stays a real collective while the block's time relation
-    (earlier / diagonal / later) rides to the kernel as an SMEM scalar —
-    it depends on the traced device index.
-
-    NOTE: like the other Pallas programs, the kernels cannot trace under
-    shard_map's varying-axes checker (in-kernel literals carry no vma);
-    call under ``shard_map(..., check_vma=False)`` (Trainer._init_sp does
-    this when the flash gate engages).
-    """
-    from ppoc_tpu.ops.pallas_attn import NEG as FNEG, flash_mha_block, \
-        merge_blocks
-
-    n = jax.lax.axis_size(axis_name)
-    me = jax.lax.axis_index(axis_name)
-    hd = q.shape[-1]
-    scale = 1.0 / math.sqrt(hd)
-
-    if self_kv is not None:
-        k_self, v_self = self_kv
-        lse0 = jnp.sum(q * k_self, axis=-1) * scale       # [T, ..., H]
-        acc = (v_self + 0.0 * q, lse0)
-    else:
-        acc = (jnp.zeros_like(q, jnp.float32),
-               jnp.full(q.shape[:-1], FNEG, jnp.float32))
-
-    k_b, v_b, ep_b = k, v, k_ep
-    perm = [(i, (i + 1) % n) for i in range(n)]
-    for j in range(n):
-        # device me holds block src = me - j (mod n); j == 0 is the
-        # diagonal; the relation is otherwise data (me is traced)
-        if j == 0:
-            rel = jnp.zeros((), jnp.int32)
-        else:
-            src = (me - j) % n
-            rel = jnp.where(src < me, -1, 1).astype(jnp.int32)
-        blk = flash_mha_block(q, k_b, v_b, q_ep, ep_b, rel)
-        acc = merge_blocks(acc, blk)
-        if j < n - 1:
-            k_b = jax.lax.ppermute(k_b, axis_name, perm)
-            v_b = jax.lax.ppermute(v_b, axis_name, perm)
-            ep_b = jax.lax.ppermute(ep_b, axis_name, perm)
-    out, lse = acc
-    # rows with no valid key anywhere: every block contributed lse = NEG
-    # and out 0; return 0 like ring_mha's l == 0 guard
-    return jnp.where((lse > FNEG / 2)[..., None], out, 0.0)

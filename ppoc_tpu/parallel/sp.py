@@ -26,7 +26,7 @@ unsharded path) plus a suffix product of coeffs; across devices: ONE
 pairs), after which every device composes the N affine maps in a log-N
 ``associative_scan`` and applies its own incoming carry.  Comm volume is
 2*N*E floats — independent of T, so the horizon can grow arbitrarily while
-the collective stays fixed-size and rides ICI.
+the collective stays fixed-size.
 
 Exactness: the local scan and the cross-shard combine use the same
 ``_linrec_combine`` as ops/gae.py, so the sharded result matches the

@@ -15,7 +15,7 @@ MLP's hidden dimension shards over a ``tp`` mesh axis:
     their own columns back out of the replicated activation to stay
     column-sharded for the next layer; the last layer stays replicated.
 
-Comm cost: one psum of [B, width] per non-first layer, riding ICI inside a
+Comm cost: one psum of [B, width] per non-first layer, inside a
 (dp, tp) mesh.  Under autodiff inside shard_map, psum transposes correctly,
 so gradients arrive per-shard and per-device Adam slices update locally with
 no extra collectives (tests/test_tp.py checks grads against the replicated

@@ -483,9 +483,8 @@ def main(argv=None) -> int:
     import argparse
     import os
 
-    # PPOC_PLATFORM / PPOC_CPU_DEVICES: pin the JAX platform before backend
-    # init (same contract as the training CLI — plain JAX_PLATFORMS does not
-    # override an ambient platform plugin)
+    # PPOC_PLATFORM / PPOC_CPU_DEVICES: pin the JAX platform through the
+    # config API before backend init (same contract as the training CLI)
     plat = os.environ.get("PPOC_PLATFORM")
     if plat:
         jax.config.update("jax_platforms", plat)

@@ -2,11 +2,11 @@
 
 No reference counterpart — the reference trains a single seed per process
 (global libc RNG, src/main.c:15-16) — but it is the kind of capability the
-TPU execution model gives for free: the whole train-until-solved program
+whole-program execution model gives for free: the whole train-until-solved program
 (ppo.train_until — rollouts, GAE, minibatch epochs, eval, the while loop)
 is a pure function of (TrainState, key), so ``jax.vmap`` batches ENTIRE
-TRAINING RUNS.  On a chip the small reference-scale program underutilizes
-(single-digit MFU, see docs/RESULTS.md), S seeds cost far less than S
+TRAINING RUNS.  On a card the small reference-scale program underutilizes
+(PERF.md), S seeds cost far less than S
 sequential runs — cross-seed variance tables (solve_many / train_many) and
 hyperparameter grid searches (solve_grid / train_grid: cartesian products
 over SWEEPABLE_HPARAMS x seeds, values traced as runtime data) in one
@@ -20,9 +20,8 @@ order (exactly like any batch-size change), so lanes drift from their
 sequential twins at float level — the algorithm, schedules and PRNG
 streams are identical.
 
-The sweep runs the generic XLA path (backend="jnp"): the fused Pallas
-kernels are written for one program instance and do not batch under vmap.
-Memory scales with S — size n_envs accordingly.
+The sweep runs the float32 XLA path (backend="jnp").  Memory scales with
+S — size n_envs accordingly.
 """
 from __future__ import annotations
 
@@ -53,7 +52,7 @@ _JIT_CACHE: Dict[Any, Any] = {}
 def _cached_jit(key, builder):
     """Reuse the jitted sweep program across calls: jit's executable cache
     is keyed on the function OBJECT, so rebuilding the closure every call
-    would re-trace and re-compile each time — on a TPU that puts tens of
+    would re-trace and re-compile each time — on an accelerator that puts tens of
     seconds of XLA compile inside what callers (bench_scaling
     --sweep) believe is a warmed-up timed region."""
     fn = _JIT_CACHE.get(key)
@@ -192,7 +191,7 @@ def train_many(cfg: PPOConfig, seeds: Sequence[int],
 
     Returns {"R": [S, n_epochs], "J": [S, n_epochs], "entropy": [S, n_epochs],
     "states": stacked TrainState} — the raw material for cross-seed
-    variance tables (docs/RESULTS.md).
+    variance tables.
     """
     n_epochs = cfg.n_epochs if n_epochs is None else n_epochs
     _validate(cfg, seeds)

@@ -283,7 +283,7 @@ def save(path: str, cfg, spec, state, key=None,
     except (ImportError, OSError) as e:
         # plain-format fallback is legitimate when the C++ lib is absent or
         # its write fails, but must be VISIBLE so container regressions
-        # don't hide (ADVICE r1 #3)
+        # don't hide
         import warnings
 
         warnings.warn(
@@ -524,6 +524,12 @@ def _load_stream(f, template=None) -> Checkpoint:
             if tup_field in d:
                 d[tup_field] = tuple(d[tup_field])
         meta = d.pop("_meta", {})
+        from ppoc_tpu.config import KERNEL_BACKENDS
+
+        if d.get("kernel_backend") not in KERNEL_BACKENDS:
+            # files from versions with other backend values: the backend
+            # is an execution choice, not part of the trained state
+            d["kernel_backend"] = PPOConfig.kernel_backend
         cfg = PPOConfig(**d)
         nk = _r(f, "i")
         if nk:

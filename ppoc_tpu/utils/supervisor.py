@@ -3,8 +3,8 @@
 The reference has no failure handling at all — CUDA errors abort
 (include/cuda_helper.h:13-15) and Python-bridge errors print and continue
 with garbage (src/gym_env.c:29,33,56,90); SURVEY.md §5 marks the subsystem
-"none".  On TPU fleets, preemption (maintenance events) and transient
-transport failures are ordinary, so the framework supplies the standard
+"none".  On accelerator fleets, preemption (maintenance events) and
+transient host failures are ordinary, so the framework supplies the standard
 recipe: frequent self-describing checkpoints (utils/checkpoint.py, written
 with an ``epochs_done`` metadata counter) + a supervisor that relaunches a
 crashed or preempted run from the newest checkpoint until the ORIGINAL
@@ -24,7 +24,7 @@ Three cooperating pieces (all exercised in tests/test_supervisor.py):
     episodes restart fresh).
   * Graceful preemption — the supervised child installs a SIGTERM handler
     that finishes the current epoch, checkpoints, and exits with
-    :data:`PREEMPTED_EXIT` so the supervisor restarts it (the TPU
+    :data:`PREEMPTED_EXIT` so the supervisor restarts it (the
     maintenance-event flow).  Fault injection for drills:
     ``PPOC_FAULT_EPOCH=k`` hard-kills the child right after epoch k's
     checkpoint (SURVEY §5 notes the reference lacks any fault-injection

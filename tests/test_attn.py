@@ -366,7 +366,7 @@ def test_window_growth_on_load(tmp_path):
 
 def test_window_growth_warns(tmp_path):
     """Growing the pos table by more than the one-row decode slot emits a
-    UserWarning naming the old/new row counts (ADVICE r4): curriculum loads
+    UserWarning naming the old/new row counts: curriculum loads
     can silence it, accidental short-window loads surface."""
     import warnings
 

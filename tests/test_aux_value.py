@@ -1,6 +1,6 @@
 """PPG-style auxiliary value head on the policy trunk (aux_value_coeff).
 
-The recall_long seed-trap's measured anatomy (docs/RESULTS.md round 5):
+The recall_long seed-trap's measured anatomy:
 the CRITIC finds the cue through supervised value regression within ~3
 epochs while the POLICY trunk stays cue-blind — zero head readout means
 no surrogate gradient into its attention (a chicken-and-egg plateau).

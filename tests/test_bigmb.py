@@ -1,16 +1,11 @@
-"""The bf16 large-minibatch (throughput) fused update phases.
+"""Large-minibatch (throughput) update path: block-shuffled minibatches
+and the bf16 XLA update.
 
-VERDICT r4 #1: at mb > _MAX_TILE the f32 fused kernels lose to the XLA
-scan; the bf16 path (ops/pallas_update.py bf16=True) runs the whole phase
-as one kernel with bf16 MXU GEMMs, f32 master weights/moments and f32
-gradient accumulation, engaged by algo/ppo under kernel_backend="bf16".
-Interpret-mode on CPU; the identical lowering compiles on the chip.
-
-The reference twin is the SAME phase on the XLA bf16 scan path (mlp.apply
-backend "bf16" + autodiff + ops/adam).  The kernel additionally rounds the
-backward cotangents to bf16 (full-speed backward GEMMs; autodiff keeps
-them f32 in a mixed dot), so the comparison is tolerance-based, not
-bit-exact — the per-step weight deltas agree to bf16 rounding.
+At large minibatches the per-row gather of the shuffled minibatch is the
+update's bandwidth wall; ``PPOConfig.shuffle_block`` assigns rows to
+minibatches in aligned blocks instead (data/buffer.py).  The bf16 backend
+runs the same scan phases with bf16 matmul operands and f32 master
+weights.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +15,6 @@ import pytest
 from ppoc_tpu import PPOConfig, envs
 from ppoc_tpu.algo import ppo
 from ppoc_tpu.data import buffer
-from ppoc_tpu.ops import pallas_update
 
 
 def _setup(cfg, seed=0):
@@ -39,106 +33,6 @@ def _bigmb_cfg(**kw):
                 hidden=(32, 32), kernel_backend="bf16")
     base.update(kw)
     return PPOConfig(**base)
-
-
-def test_bigmb_ok_gate():
-    assert pallas_update.bigmb_ok(4096)
-    assert pallas_update.bigmb_ok(16384)
-    assert pallas_update.bigmb_ok(3072)        # divisible by 1024
-    assert not pallas_update.bigmb_ok(2048)    # f32 kernels' regime
-    assert not pallas_update.bigmb_ok(64)
-    assert not pallas_update.bigmb_ok(5000)    # no aligned tile
-
-
-def test_bigmb_value_phase_matches_bf16_scan():
-    """The bf16 throughput kernel (called directly — the block-shuffled
-    scan beats it on chip, so no automatic gate routes here) reproduces
-    the XLA bf16 scan phase to bf16-rounding tolerance."""
-    cfg = _bigmb_cfg()
-    env, ts, buf = _setup(cfg)
-    k = jax.random.PRNGKey(7)
-
-    p_k, o_k, loss_k = jax.jit(
-        lambda vp, ov, key: pallas_update.value_phase_fused(
-            cfg, vp, ov, buf, key, bf16=True))(ts.v_params, ts.opt_v, k)
-    ts_k = ts._replace(v_params=p_k, opt_v=o_k)
-
-    ts_r, loss_r = ppo.value_phase(
-        cfg, ts, buf, k, None, "bf16", cfg.num_minibatches,
-        cfg.minibatch_size)
-
-    assert float(loss_r) == pytest.approx(float(loss_k), rel=2e-2)
-    for (a, ab), (b, bb) in zip(jax.device_get(ts_r.v_params),
-                                jax.device_get(ts_k.v_params)):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=5e-2, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(ab), bb, rtol=5e-2, atol=2e-4)
-    assert int(ts_r.opt_v.t) == int(ts_k.opt_v.t)
-
-
-def test_bigmb_value_subtiling_exact():
-    """Sub-tile gradient accumulation (f32 scratch over bf16 partial GEMMs)
-    must reproduce the single-tile kernel to f32 reduction noise: force
-    4 sub-tiles and compare against the 1-tile run of the SAME kernel."""
-    cfg = _bigmb_cfg(n_epochs_value=2)
-    env, ts, buf = _setup(cfg)
-    k = jax.random.PRNGKey(3)
-    run = lambda: jax.jit(lambda vp, ov, key: pallas_update.value_phase_fused(
-        cfg, vp, ov, buf, key, bf16=True))(ts.v_params, ts.opt_v, k)
-    p1, o1, l1 = run()
-    old = pallas_update._MAX_TILE_BF16
-    pallas_update._MAX_TILE_BF16 = 1024   # 4 sub-tiles per minibatch
-    try:
-        p4, o4, l4 = run()
-    finally:
-        pallas_update._MAX_TILE_BF16 = old
-    assert float(l1) == pytest.approx(float(l4), rel=1e-5)
-    for (a, ab), (b, bb) in zip(jax.device_get(p1), jax.device_get(p4)):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(ab), bb, rtol=1e-4, atol=1e-6)
-
-
-@pytest.mark.parametrize("ent_coeff", [0.0, 0.01])
-def test_bigmb_policy_phase_matches_bf16_scan(ent_coeff):
-    cfg = _bigmb_cfg(ent_coeff=ent_coeff)
-    env, ts, buf = _setup(cfg)
-    k = jax.random.PRNGKey(11)
-
-    pol_k, op_k, ols_k, loss_k, ent_k = jax.jit(
-        lambda t, key: pallas_update.policy_phase_fused(
-            cfg, t.policy_params, t.opt_policy, t.opt_log_std, buf, key,
-            bf16=True))(ts, k)
-    ts_k = ts._replace(policy_params=pol_k, opt_policy=op_k,
-                       opt_log_std=ols_k)
-    ts_r, loss_r, ent_r = ppo.policy_phase(
-        cfg, env, ts, buf, k, None, "bf16",
-        cfg.num_minibatches, cfg.minibatch_size)
-
-    assert float(ent_r) == pytest.approx(float(ent_k), rel=1e-3)
-    assert float(loss_r) == pytest.approx(float(loss_k), rel=2e-2, abs=1e-4)
-    for (a, ab), (b, bb) in zip(
-            jax.device_get(ts_r.policy_params["mlp"]),
-            jax.device_get(ts_k.policy_params["mlp"])):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=5e-2, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(ab), bb, rtol=5e-2, atol=2e-4)
-    np.testing.assert_allclose(
-        jax.device_get(ts_r.policy_params["log_std"]),
-        jax.device_get(ts_k.policy_params["log_std"]), rtol=5e-2, atol=2e-4)
-    assert int(ts_r.opt_policy.t) == int(ts_k.opt_policy.t)
-    assert int(ts_r.opt_log_std.t) == int(ts_k.opt_log_std.t)
-
-
-def test_bigmb_multiminibatch_value():
-    """n_mb > 1 at mb 3072 (tile 1024, 3 sub-tiles): Adam timestep
-    sequencing across minibatch steps within the grid."""
-    cfg = _bigmb_cfg(n_envs=48, minibatch_size=3072, n_epochs_value=2)
-    env, ts, buf = _setup(cfg)
-    assert cfg.num_minibatches == 2
-    k = jax.random.PRNGKey(5)
-    p2, o2, l2 = jax.jit(
-        lambda vp, ov, key: pallas_update.value_phase_fused(
-            cfg, vp, ov, buf, key, bf16=True))(ts.v_params, ts.opt_v, k)
-    assert int(o2.t) - int(ts.opt_v.t) == 4      # 2 epochs x 2 minibatches
-    assert np.isfinite(float(l2))
 
 
 def test_block_permutation_partitions_buffer():
@@ -175,31 +69,10 @@ def test_shuffle_block_validation():
     validate(_bigmb_cfg(shuffle_block=512))            # divides: ok
 
 
-def test_fused_matches_scan_under_block_shuffle():
-    """With shuffle_block set, the fused kernel and the scan consume the
-    IDENTICAL block stream (same per-epoch keys), so the f32 exactness
-    contract carries over."""
-    cfg = PPOConfig(env="pendulum", n_envs=8, rollout_len=48,
-                    minibatch_size=64, n_epochs_value=3, hidden=(32, 32),
-                    kernel_backend="jnp", shuffle_block=16)
-    env, ts, buf = _setup(cfg)
-    k = jax.random.PRNGKey(7)
-    ts_ref, loss_ref = ppo.value_phase(
-        cfg, ts, buf, k, None, "jnp", cfg.num_minibatches,
-        cfg.minibatch_size)
-    p2, o2, loss2 = jax.jit(
-        lambda vp, ov, key: pallas_update.value_phase_fused(
-            cfg, vp, ov, buf, key))(ts.v_params, ts.opt_v, k)
-    assert float(loss_ref) == pytest.approx(float(loss2), rel=1e-5)
-    for (a, ab), (b, bb) in zip(jax.device_get(ts_ref.v_params),
-                                jax.device_get(p2)):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-4, atol=1e-6)
-
-
 def test_block_shuffle_learns():
     """End-to-end: pendulum training with block-shuffled minibatches still
     reduces the value loss (the statistical-equivalence smoke check; the
-    solve-quality A/B runs on the chip, docs/RESULTS.md)."""
+    solve-quality A/B runs on the chip)."""
     cfg = PPOConfig(env="pendulum", n_envs=16, rollout_len=64,
                     minibatch_size=256, fits_per_epoch=1, eval_envs=16,
                     eval_len=200, hidden=(32, 32), kernel_backend="jnp",

@@ -9,9 +9,9 @@ def test_defaults_are_reference_preset():
     assert cfg.minibatch_size == 64 and cfg.lr_policy == 3e-4
 
 
-def test_tpu_preset_and_overrides():
+def test_throughput_preset_and_overrides():
     args = build_parser().parse_args(
-        ["--preset", "tpu", "--n-envs", "512", "--lr-policy", "1e-3",
+        ["--preset", "throughput", "--n-envs", "512", "--lr-policy", "1e-3",
          "--hidden", "256", "256", "--env", "cartpole", "--tp-size", "2"]
     )
     cfg = config_from_args(args)

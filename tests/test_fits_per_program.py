@@ -1,9 +1,8 @@
 """Chunked-epoch dispatch (PPOConfig.fits_per_program).
 
-The fused scan-of-fits epoch program's cold compile+first-run cost grows
-with fits_per_epoch x rollout_len; at extreme windows (T=8192 attention)
-the single RPC crashes the accelerator transport's worker
-(docs/RESULTS.md round 5).  fits_per_program=N compiles a bounded N-fit
+The fused scan-of-fits epoch program's compile cost grows with
+fits_per_epoch x rollout_len; at extreme windows (T=8192 attention)
+fits_per_program=N, a compile-size option, compiles a bounded N-fit
 program and replays the fused epoch's EXACT key stream in slices — the
 contract here is bit-identical training, not merely statistical parity.
 """

@@ -78,63 +78,3 @@ def test_normalize_matches_reference_eps():
     np.testing.assert_allclose(
         np.asarray(y), (np.asarray(x) - float(m)) / (float(s) + 1e-8), rtol=1e-6
     )
-
-
-def test_fused_gae_norm_kernel_matches_jnp():
-    """ops/pallas_gae.py: one-kernel GAE + normalize vs the associative-scan
-    + Welford pipeline (and the unnormalized recurrence vs gae())."""
-    from ppoc_tpu.ops import pallas_gae, welford
-
-    T, E = 37, 8
-    key = jax.random.PRNGKey(0)
-    r = jax.random.normal(key, (T, E))
-    v = jax.random.normal(jax.random.fold_in(key, 1), (T, E))
-    nv = jax.random.normal(jax.random.fold_in(key, 2), (T, E))
-    term = jax.random.bernoulli(jax.random.fold_in(key, 3), 0.1, (T, E))
-    trunc = jax.random.bernoulli(jax.random.fold_in(key, 4), 0.05, (T, E))
-
-    adv_ref, tgt_ref = gae_ops.gae(r, v, nv, term, trunc, 0.99, 0.95)
-    mean, var = welford.mean_var(adv_ref, None)
-    adv_ref_n = gae_ops.normalize(adv_ref, mean, jnp.sqrt(var))
-
-    adv_f, tgt_f = jax.jit(lambda *a: pallas_gae.gae_norm_fused(
-        *a, gamma=0.99, lam=0.95))(r, v, nv, term, trunc)
-    np.testing.assert_allclose(np.asarray(adv_f), np.asarray(adv_ref_n),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(tgt_f), np.asarray(tgt_ref),
-                               rtol=1e-5, atol=1e-5)
-
-    adv_u, _ = jax.jit(lambda *a: pallas_gae.gae_norm_fused(
-        *a, gamma=0.99, lam=0.95, normalize=False))(r, v, nv, term, trunc)
-    np.testing.assert_allclose(np.asarray(adv_u), np.asarray(adv_ref),
-                               rtol=1e-5, atol=1e-5)
-
-def test_fused_gae_chunked_matches_single_shot():
-    """Env-chunking the GAE kernel is an execution detail: a C-cell grid
-    with the normalization moved to the XLA pass must match the single-shot
-    in-kernel result to float tolerance, and the planner must chunk shapes
-    past the single-shot plane ceiling (pendulum tpu x8 config)."""
-    from ppoc_tpu.ops import pallas_gae
-
-    assert pallas_gae.chunk_plan(200, 4096) == 1     # 3.3 MB: hardware OK
-    assert pallas_gae.chunk_plan(200, 8192) == 8     # 6.6 MB was hardware OOM
-    assert pallas_gae.chunk_plan(5000, 256) is None  # unchunkable -> scan
-
-    T, E = 64, 256
-    key = jax.random.PRNGKey(5)
-    r = jax.random.normal(key, (T, E))
-    v = jax.random.normal(jax.random.fold_in(key, 1), (T, E))
-    nv = jax.random.normal(jax.random.fold_in(key, 2), (T, E))
-    term = jax.random.bernoulli(jax.random.fold_in(key, 3), 0.1, (T, E))
-    trunc = jax.random.bernoulli(jax.random.fold_in(key, 4), 0.05, (T, E))
-
-    for normalize in (True, False):
-        a1, t1 = jax.jit(lambda *a: pallas_gae.gae_norm_fused(
-            *a, gamma=0.99, lam=0.95, normalize=normalize,
-            n_chunks=1))(r, v, nv, term, trunc)
-        a2, t2 = jax.jit(lambda *a: pallas_gae.gae_norm_fused(
-            *a, gamma=0.99, lam=0.95, normalize=normalize,
-            n_chunks=2))(r, v, nv, term, trunc)
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t2))

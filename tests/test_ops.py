@@ -178,7 +178,7 @@ def test_mlp_forward_shapes_and_linearity():
 def test_bf16_backend_forward_and_training():
     """kernel_backend='bf16': forward matches f32 within bf16 tolerance and
     training still learns (master weights stay f32; chip runs show identical
-    solve-epoch counts — docs/RESULTS.md)."""
+    solve-epoch counts)."""
     import numpy as np
 
     from ppoc_tpu import PPOConfig, Trainer

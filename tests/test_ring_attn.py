@@ -92,73 +92,3 @@ def test_gradients_match_single_device():
     gg = jax.jit(jax.grad(loss_ring, argnums=(0, 1, 2)))(q, k, v)
     for a, b in zip(gr, gg):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=1e-4)
-
-
-@pytest.mark.parametrize("n_shards,p_done", [(2, 0.0), (4, 0.15)])
-def test_ring_flash_matches_single_device(n_shards, p_done):
-    """Every ring block through the flash kernel (pallas_attn
-    .flash_mha_block + merge_blocks) must equal the materialized-mask
-    oracle, like the jnp ring — including episode-mismatched rows whose
-    block lse is the NEG sentinel."""
-    T, B, H, hd = 64, 2, 2, 8
-    q, k, v, done = _case(T, B, H, hd, p_done)
-    ref = attn._mha(q, k, v, attn.causal_episode_mask(done))
-
-    def f(q, k, v, done):
-        ep = ring_attn.global_episode_ids(done, "sp")
-        return ring_attn.ring_mha_flash(q, k, v, ep, ep, "sp")
-
-    got = jax.jit(jax.shard_map(
-        f, mesh=_mesh(n_shards), in_specs=(P("sp"),) * 4,
-        out_specs=P("sp"), check_vma=False))(q, k, v, done)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
-
-
-def test_ring_flash_gradients_match_single_device():
-    """BPTT through the flash blocks' custom VJPs + the differentiable
-    online-softmax merge + the ppermute chain."""
-    T, B, H, hd, N = 64, 2, 2, 8, 4
-    q, k, v, done = _case(T, B, H, hd, 0.15, seed=3)
-    mask = attn.causal_episode_mask(done)
-
-    def loss_ref(q, k, v):
-        return jnp.sum(jnp.sin(attn._mha(q, k, v, mask)))
-
-    ring = jax.shard_map(
-        lambda q, k, v, d: ring_attn.ring_mha_flash(
-            q, k, v, ring_attn.global_episode_ids(d, "sp"),
-            ring_attn.global_episode_ids(d, "sp"), "sp"),
-        mesh=_mesh(N), in_specs=(P("sp"),) * 4, out_specs=P("sp"),
-        check_vma=False)
-
-    def loss_ring(q, k, v):
-        return jnp.sum(jnp.sin(ring(q, k, v, done)))
-
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    gg = jax.jit(jax.grad(loss_ring, argnums=(0, 1, 2)))(q, k, v)
-    for a, b in zip(gr, gg):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=2e-4)
-
-
-def test_ring_flash_self_token():
-    """The V(s') decode's self token seeds the merge as an extra
-    (out=v_self, lse=s_self) block — compare against the jnp ring's
-    self_kv path."""
-    T, B, H, hd, N = 32, 2, 1, 8, 4
-    q, k, v, done = _case(T, B, H, hd, 0.2, seed=4)
-    ks2 = jax.random.split(jax.random.PRNGKey(9), 2)
-    k_self = jax.random.normal(ks2[0], (T, B, H, hd))
-    v_self = jax.random.normal(ks2[1], (T, B, H, hd))
-
-    def f(flash):
-        def inner(q, k, v, done, k_self, v_self):
-            ep = ring_attn.global_episode_ids(done, "sp")
-            fn = ring_attn.ring_mha_flash if flash else ring_attn.ring_mha_ids
-            return fn(q, k, v, ep, ep, "sp", self_kv=(k_self, v_self))
-        return jax.jit(jax.shard_map(
-            inner, mesh=_mesh(N), in_specs=(P("sp"),) * 6,
-            out_specs=P("sp"), check_vma=False))
-
-    ref = f(False)(q, k, v, done, k_self, v_self)
-    got = f(True)(q, k, v, done, k_self, v_self)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)

@@ -141,28 +141,6 @@ def test_sweep_rejects_sp():
         sweep.train_many(_cfg(sp_size=2), [0, 1], n_epochs=1)
 
 
-def test_sp_trainer_flash_ring(monkeypatch, _quiet_eval):
-    """kernel_backend='pallas' with a local time shard in the flash regime
-    trains through the flash-block ring end-to-end (check_vma dropped,
-    models/attn._ring_core) and matches the jnp-ring trainer to float
-    noise on the same config."""
-    from ppoc_tpu.models import attn as attn_mod
-
-    monkeypatch.setattr(attn_mod, "FLASH_MIN_T", 8)
-    cfg = _cfg(sp_size=2, kernel_backend="pallas")
-    tr_flash = Trainer(cfg, mesh=_mesh2d(2, 2))
-    assert tr_flash.backend == "pallas" and not tr_flash._sp_check_vma
-    m_flash = jax.tree.map(float, jax.device_get(tr_flash.train_epoch()))
-
-    monkeypatch.setattr(attn_mod, "FLASH_MIN_T", 10_000)
-    tr_jnp = Trainer(_cfg(sp_size=2), mesh=_mesh2d(2, 2))
-    m_jnp = jax.tree.map(float, jax.device_get(tr_jnp.train_epoch()))
-    assert m_flash.value_loss == pytest.approx(m_jnp.value_loss, rel=1e-3)
-    err = _max_rel_err(jax.device_get(tr_jnp.state.policy_params),
-                       jax.device_get(tr_flash.state.policy_params))
-    assert err < 5e-3, f"flash-ring trainer diverged from jnp ring: {err}"
-
-
 def test_sp_with_stabilizers(_quiet_eval):
     """max_grad_norm + clip_value + target_kl under (dp, sp): the gradient
     clip, the PPO2 value clip's rollout-time V(s) plane (compute_values_sp)

@@ -33,8 +33,8 @@ BASE_ARGS = [
 
 def _child_env(**extra):
     env = dict(os.environ)
-    # plain JAX_PLATFORMS=cpu cannot override an ambient platform plugin;
-    # the CLI's PPOC_PLATFORM hook uses the config API, which can
+    # the CLI's PPOC_PLATFORM hook pins the child to the CPU through the
+    # config API
     env["PPOC_PLATFORM"] = "cpu"
     env.pop("PPOC_FAULT_EPOCH", None)
     env.update(extra)
@@ -220,3 +220,23 @@ def test_supervise_flag_validation():
     with pytest.raises(SystemExit):
         cli.main(["--supervise", "2", "--save", "x.bin",
                   "--checkpoint-every", "1", "--solve-R", "0.5"])
+
+
+def test_supervisor_parent_never_initializes_a_backend(tmp_path):
+    """The --supervise parent parses, validates and spawns without ever
+    initializing a JAX backend: on a GPU host the training child must be
+    the one process that reserves the card's memory."""
+    code = (
+        "import sys\n"
+        "from ppoc_tpu import cli\n"
+        "from ppoc_tpu.utils import supervisor\n"
+        "seen = []\n"
+        "supervisor.supervise = lambda *a, **k: seen.append(a) or 0\n"
+        f"rc = cli.main({BASE_ARGS + ['--save', str(tmp_path / 's.bin'), '--checkpoint-every', '1', '--supervise', '2']!r})\n"
+        "import jax._src.xla_bridge as xb\n"
+        "print(rc, len(seen), sorted(xb._backends))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO, env=_child_env())
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["0", "1", "[]"], (r.stdout, r.stderr)
